@@ -1,0 +1,396 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py            # everything, as a release check runs it
+    python3 chip_smoke.py --only kernels   # build + kernel-vs-plain checks
+    python3 chip_smoke.py --profile chiprun_out   # phase 4 under torch.profiler
+
+Phases (any failure exits non-zero, and no result line is printed):
+  1. card name and power limit (nvidia-smi); build the CUDA kernels.
+  2. each kernel against its plain PyTorch version on the card, at the
+     main path's shapes: densify (npad 28672), row-major sweep (npad 384,
+     the synth path's, and 4096), coordinate-major sweep (B 1024,
+     npad 28672, one sweep), pack (1024, 28672).  Max error and both times
+     are printed.
+  3. the vendored synth set through learn / get_topn: the quality goldens.
+  4. the ML-20M synth workload at full scale: learn -> predict_topn for
+     every user; objective and model nnz against the JAX package's result.
+     With --profile DIR this phase runs under torch.profiler; device time
+     by kernel and the device idle share go to DIR/profile_ml20m.{txt,json}.
+  5. the kernels line.  Phases 3 and 4 are each driven with every launch
+     counter set to 0 just before and read just after; each path must
+     launch its own kernels (PATH_KERNELS).  A kernel's ``launches`` is the
+     sum of its per-path counts (``launches_by_path``) in the unit of
+     ``launch_unit``; errors and times come from phase 2, at the shape the
+     path runs (``ms``/``plain_ms``) and at the other shapes checked
+     (``extra``).
+The last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# quality goldens of the vendored synth set (tests/test_goldens.py)
+SYNTH_LOSS, SYNTH_NNZ, SYNTH_HR, SYNTH_ARHR = 4730.0005, 10613, 0.230833, 0.135996
+# ML-20M synth (datagen.synth_ml20m(seed=0), l1r = l2r = 1): the JAX
+# package's objective and model nnz
+ML20M_OBJ, ML20M_NNZ = 9415007.30, 34464838
+# the kernels each driven path must launch: the synth set (npad 384) solves
+# on the row-major sweep, every ML-20M block on the coordinate-major one
+PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
+                "ml20m": ("densify", "cd_sweep_large", "pack")}
+_SWEEP_UNIT = ("sweeps: one wrapper call enqueues a GS-chain and a "
+               "propagation kernel per chunk and an end-of-sweep kernel")
+LAUNCH_UNIT = {"densify": "kernel launches", "pack": "kernel launches",
+               "cd_sweep": _SWEEP_UNIT, "cd_sweep_large": _SWEEP_UNIT}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def check_densify(dev, rng):
+    from slim_tpu_torch.ops.densify import densify, densify_meta, densify_plain
+
+    npad, W, R = 28672, 256, 8192
+    lens = rng.integers(0, W + 1, R)
+    ids = rng.integers(0, npad, (W, R)).astype(np.int32)
+    ids[np.arange(W)[:, None] >= lens[None, :]] = npad      # sentinels
+    ids[1, ::7] = ids[0, ::7]                               # duplicates
+    vals = rng.integers(1, 6, (W, R)).astype(np.float32)    # exact sums
+    idsT = torch.from_numpy(ids).to(dev)
+    valsT = torch.from_numpy(vals).to(dev)
+    wmax = densify_meta(idsT, npad)
+    err = 0.0
+    for v, dt in ((valsT, torch.float32), (None, torch.int8)):
+        got = densify(idsT, v, wmax, npad, out_dtype=dt)
+        ref = densify_plain(idsT, v, wmax, npad,
+                            torch.zeros((npad, R), dtype=dt, device=dev))
+        err = max(err, (got.float() - ref.float()).abs().max().item())
+    ms = cuda_ms(lambda: densify(idsT, valsT, wmax, npad), 10)
+    plain_ms = cuda_ms(lambda: densify_plain(
+        idsT, valsT, wmax, npad,
+        torch.zeros((npad, R), dtype=torch.float32, device=dev)), 3)
+    check(err == 0.0, f"densify differs from plain by {err}")
+    return dict(name="densify", route="cuda",
+                source="slim_tpu_torch/csrc/densify.cu",
+                replaces="slim_tpu/ops/pallas_gram.py:58",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                shape=f"W={W} R={R} npad={npad}", tol="exact")
+
+
+def _sweep_inputs(dev, rng, n, nrows, nnz, B, large):
+    """A real Gram (densify + contraction on the card) of a synth matrix,
+    the screen of its first B columns, and one sweep's operands."""
+    from slim_tpu_torch.datagen import synth_implicit
+    from slim_tpu_torch.ops.cd_kernel import per_col, screen
+    from slim_tpu_torch.ops.cd_sweep import CHUNK, GROUP
+    from slim_tpu_torch.ops.gram import compute_gram
+    from slim_tpu_torch.solvers.cd import bucket_npad
+
+    mat = synth_implicit(nrows, n, nnz, seed=int(rng.integers(1 << 30)))
+    npad = bucket_npad(n)
+    G = compute_gram(mat, "device", pad_to=npad, device=dev)
+    J = torch.arange(B, dtype=torch.int32, device=dev)
+    J = torch.where(J < n, J, npad - 1)       # padded columns: zero column
+    gj = G[:, J.long()].T.contiguous()
+    l1 = per_col(1.0, B, dev)
+    act = screen(gj, J, l1)
+    width = GROUP if large else CHUNK
+    npos = npad // width
+    perm = torch.from_numpy(rng.permutation(npos).astype(np.int32)).to(dev)
+    has = torch.from_numpy((rng.random(npos) < 0.8).astype(np.int32)).to(dev)
+    live = torch.from_numpy((rng.random(B) < 0.9).astype(np.float32)).to(dev)
+    x = torch.where(act, torch.from_numpy(
+        rng.random((B, npad)).astype(np.float32) * 0.01).to(dev), 0.0)
+    q = x @ G
+    regs = torch.stack([l1, per_col(1.0, B, dev),
+                        torch.full((B,), 50.0, device=dev),
+                        torch.zeros(B, device=dev),
+                        torch.full((B,), 1e-7, device=dev)], dim=1)
+    diag2d = torch.diagonal(G).reshape(1, npad).contiguous()
+    return G, gj, act.to(torch.int8), x, q, live, diag2d, regs, perm, has
+
+
+def _cmp_sweep(got, ref):
+    """(x max abs err, q max abs err relative to max |q|, live equal)."""
+    ex = (got[0] - ref[0]).abs().max().item()
+    eq = (got[1] - ref[1]).abs().max().item() / max(
+        1.0, ref[1].abs().max().item())
+    return ex, eq, torch.equal(got[2], ref[2])
+
+
+def check_sweep(dev, rng, n, B):
+    from slim_tpu_torch.ops.cd_sweep import cd_sweep, cd_sweep_plain
+
+    G, gj, act, x, q, live, diag2d, regs, perm, has = _sweep_inputs(
+        dev, rng, n, 4 * n, 40 * n, B, large=False)
+    args = (G, gj, act, x, q, live[:, None].contiguous(), diag2d,
+            regs.contiguous(), perm, has)
+    ex, eq, same_live = _cmp_sweep(cd_sweep(*args), cd_sweep_plain(*args))
+    check(ex <= 1e-4 and eq <= 1e-4 and same_live,
+          f"sweep npad {G.shape[0]}: x err {ex}, q rel err {eq}, "
+          f"live equal {same_live}")
+    return dict(name=f"cd_sweep@{G.shape[0]}", route="cuda",
+                source="slim_tpu_torch/csrc/sweep.cu",
+                replaces="slim_tpu/ops/pallas_cd.py:58",
+                max_abs_err=ex, q_rel_err=eq,
+                ms=cuda_ms(lambda: cd_sweep(*args), 5),
+                plain_ms=cuda_ms(lambda: cd_sweep_plain(*args), 1),
+                shape=f"B={B} npad={G.shape[0]}", tol="x 1e-4, q 1e-4 rel")
+
+
+def check_sweep_large(dev, rng):
+    from slim_tpu_torch.ops.cd_sweep import cd_sweep_large, cd_sweep_large_plain
+
+    B = 1024
+    G, gj, act, x, q, live, diag2d, regs, perm, has = _sweep_inputs(
+        dev, rng, 27278, 20000, 2_000_000, B, large=True)
+    args = (G, gj.T.contiguous(), act.T.contiguous(), x.T.contiguous(),
+            q.T.contiguous(), live[None, :].contiguous(), diag2d,
+            regs.T.contiguous(), perm, has)
+    ex, eq, same_live = _cmp_sweep(cd_sweep_large(*args),
+                                   cd_sweep_large_plain(*args))
+    check(ex <= 1e-4 and eq <= 1e-4 and same_live,
+          f"large sweep: x err {ex}, q rel err {eq}, live equal {same_live}")
+    return dict(name="cd_sweep_large", route="cuda",
+                source="slim_tpu_torch/csrc/sweep.cu",
+                replaces="slim_tpu/ops/pallas_cd.py:920",
+                max_abs_err=ex, q_rel_err=eq,
+                ms=cuda_ms(lambda: cd_sweep_large(*args), 3),
+                plain_ms=cuda_ms(lambda: cd_sweep_large_plain(*args), 1),
+                shape=f"B={B} npad={G.shape[0]}", tol="x 1e-4, q 1e-4 rel")
+
+
+def check_pack(dev, rng):
+    from slim_tpu_torch.ops.pack import pack, pack_plain
+    from slim_tpu_torch.utils import nnz_bucket
+
+    B, K = 1024, 28672
+    x = np.where(rng.random((B, K)) < 0.04,
+                 rng.random((B, K)).astype(np.float32) + 0.5, 0.0)
+    x[rng.random((B, K)) < 0.01] = 5e-8                     # below eps
+    x = x.astype(np.float32)
+    c = (x > np.float32(1e-7)).sum(axis=1)
+    off = np.zeros(B, np.int32)
+    np.cumsum(c[:-1], out=off[1:])
+    Tpad = nnz_bucket(int(c.sum()), floor=128)
+    xd, od = torch.from_numpy(x).to(dev), torch.from_numpy(off).to(dev)
+    v1, i1 = pack(xd, od, 1e-7, Tpad)
+    v0, i0 = pack_plain(xd, od, 1e-7, Tpad)
+    same = torch.equal(v1, v0) and torch.equal(i1, i0)
+    check(same, "pack differs from plain")
+    return dict(name="pack", route="cuda", source="slim_tpu_torch/csrc/pack.cu",
+                replaces="slim_tpu/ops/pallas_pack.py:41", max_abs_err=0.0,
+                ms=cuda_ms(lambda: pack(xd, od, 1e-7, Tpad), 10),
+                plain_ms=cuda_ms(lambda: pack_plain(xd, od, 1e-7, Tpad), 3),
+                shape=f"B={B} K={K}", tol="bit-equal")
+
+
+def run_synth(dev):
+    from slim_tpu_torch import SlimConfig, determine_head_tail, evaluate_topn
+    from slim_tpu_torch import get_topn, learn
+    from slim_tpu_torch.io.readers import read_matrix
+
+    data = os.path.join(HERE, "tests", "data")
+    trn = read_matrix(os.path.join(data, "synth-train.ijv"), fmt="ijv") \
+        .infer_ncols()
+    tst = read_matrix(os.path.join(data, "synth-test.ijv"), fmt="ijv") \
+        .infer_ncols()
+    model, stats = learn(trn, SlimConfig(l1r=1.0, l2r=1.0), device=dev)
+    ids, _, counts = get_topn(model, trn, nrcmds=10, device=dev)
+    n = max(trn.ncols, tst.ncols, model.ncols)
+    res = evaluate_topn(ids, counts, tst, determine_head_tail(trn, n))
+    out = dict(loss=stats["loss"], nnz=stats["nnz"], hr=res.hr,
+               arhr=res.arhr, learn_s=stats["learn_s"])
+    print("synth:", json.dumps(out))
+    check(abs(stats["loss"] - SYNTH_LOSS) <= 1e-4 * SYNTH_LOSS,
+          f"synth loss {stats['loss']}")
+    check(abs(stats["nnz"] - SYNTH_NNZ) <= 0.01 * SYNTH_NNZ,
+          f"synth nnz {stats['nnz']}")
+    check(abs(res.hr - SYNTH_HR) < 0.015, f"synth hr {res.hr}")
+    check(abs(res.arhr - SYNTH_ARHR) < 0.010, f"synth arhr {res.arhr}")
+    return out
+
+
+def write_profile(prof, wall_s, out_dir):
+    """Device time of a profiled run by kernel: the full operator table to
+    ``profile_ml20m.txt``; the device rows (kernels, copies, memsets, on
+    one stream so they never overlap), their sum as busy time and the idle
+    share of ``wall_s`` to ``profile_ml20m.json`` and to stdout."""
+    from torch.autograd import DeviceType
+
+    ka = prof.key_averages()
+    rows = sorted((e for e in ka if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_s = sum(e.self_device_time_total for e in rows) / 1e6
+    summary = dict(wall_s=wall_s, device_busy_s=busy_s,
+                   idle_share=1.0 - busy_s / wall_s,
+                   top=[dict(name=e.key, calls=e.count,
+                             device_s=e.self_device_time_total / 1e6)
+                        for e in rows[:10]])
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_ml20m.txt"), "w") as f:
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+    with open(os.path.join(out_dir, "profile_ml20m.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print("profile:", json.dumps(summary), flush=True)
+
+
+def run_ml20m(dev, profile_dir=None):
+    from slim_tpu_torch.datagen import synth_ml20m
+
+    t0 = time.perf_counter()
+    trn = synth_ml20m(seed=0)
+    gen_s = time.perf_counter() - t0
+    if profile_dir is not None:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = _learn_predict_ml20m(dev, trn, gen_s)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        write_profile(prof, wall_s, profile_dir)
+        return out
+    return _learn_predict_ml20m(dev, trn, gen_s)
+
+
+def _learn_predict_ml20m(dev, trn, gen_s):
+    from slim_tpu_torch import SlimConfig, learn
+    from slim_tpu_torch.predict import predict_topn
+
+    cfg = SlimConfig(l1r=1.0, l2r=1.0, optTol=1e-7, maxniters=10000,
+                     block_size=1024, dbglvl=2)
+    model, stats = learn(trn, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, _, counts = predict_topn(model, trn, nrcmds=10, device=dev)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    out = dict(nrows=trn.nrows, ncols=trn.ncols, nnz=trn.nnz,
+               datagen_s=gen_s, learn_s=stats["learn_s"],
+               phases=stats["phases"], sweeps=stats["sweeps"],
+               objective=stats["loss"], model_nnz=stats["nnz"],
+               predict_s=pred_s, predict_users_per_s=trn.nrows / pred_s,
+               cols_per_s=trn.ncols / stats["learn_s"])
+    print("ml20m:", json.dumps(out))
+    check(ids.shape == (trn.nrows, 10) and np.all(counts >= 0)
+          and np.all(ids < trn.ncols), "predict output malformed")
+    check(abs(stats["loss"] - ML20M_OBJ) <= 1e-4 * ML20M_OBJ,
+          f"ML-20M objective {stats['loss']}")
+    check(abs(stats["nnz"] - ML20M_NNZ) <= 0.01 * ML20M_NNZ,
+          f"ML-20M model nnz {stats['nnz']}")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=["kernels", "all"], default="all",
+                    help="kernels: stop after the kernel checks")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="run the ML-20M phase under torch.profiler and "
+                         "write its per-kernel device times into DIR")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import slim_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from slim_tpu_torch.ops import _build
+    from slim_tpu_torch.ops.cd_sweep import cd_sweep, cd_sweep_large
+    from slim_tpu_torch.ops.densify import densify
+    from slim_tpu_torch.ops.gram import pin_f32
+    from slim_tpu_torch.ops.pack import pack
+
+    pin_f32()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print("card:", card, flush=True)
+    t0 = time.perf_counter()
+    _build.build()
+    _build.lib()
+    print(f"build: {time.perf_counter() - t0:.2f}s", flush=True)
+
+    rng = np.random.default_rng(0)
+    checks = [check_densify(dev, rng), check_sweep(dev, rng, 300, 512),
+              check_sweep(dev, rng, 4000, 512), check_sweep_large(dev, rng),
+              check_pack(dev, rng)]
+    for c in checks:
+        print("check:", json.dumps(c), flush=True)
+    if args.only == "kernels":
+        return 0
+
+    wrappers = {"densify": densify, "cd_sweep": cd_sweep,
+                "cd_sweep_large": cd_sweep_large, "pack": pack}
+    by_path = {}
+    for path, drive in (("synth", lambda: run_synth(dev)),
+                        ("ml20m", lambda: run_ml20m(dev, args.profile))):
+        for w in wrappers.values():
+            w.launches = 0
+        drive()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        by_path[path] = counts
+        print(f"launches {path}:", json.dumps(counts), flush=True)
+        missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+        check(not missing, f"{path} path launched no {missing}: {counts}")
+
+    by_name = {}
+    for c in checks:       # a kernel's first check is at its path's shape
+        base = c["name"].split("@")[0]
+        e = by_name.get(base)
+        if e is None:
+            per_path = {p: n[base] for p, n in by_path.items()
+                        if base in PATH_KERNELS[p]}
+            by_name[base] = dict(
+                name=base, route=c["route"], source=c["source"],
+                replaces=c["replaces"], launches=sum(per_path.values()),
+                launches_by_path=per_path, launch_unit=LAUNCH_UNIT[base],
+                max_abs_err=c["max_abs_err"], ms=c["ms"],
+                plain_ms=c["plain_ms"], shape=c["shape"])
+        else:
+            e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
+            e.setdefault("extra", []).append(dict(
+                shape=c["shape"], max_abs_err=c["max_abs_err"], ms=c["ms"],
+                plain_ms=c["plain_ms"]))
+    print(card_line())
+    print(json.dumps({"kernels": list(by_name.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,30 @@
+"""slim_tpu_torch: the PyTorch / CUDA port of slim_tpu (Sparse LInear
+Methods top-N recommendation, Ning & Karypis, ICDM 2011).
+
+Single-device CD learn, dense top-N and HR/ARHR evaluation, with the
+JAX package's Pallas kernels replaced by hand-written Hopper kernels
+(csrc/).  Imports torch, numpy and scipy, never jax.
+
+Quick start::
+
+    from slim_tpu_torch import learn, get_topn, SlimConfig
+    model, stats = learn(train_csr, SlimConfig(l1r=1.0, l2r=1.0))
+    ids, scores, counts = get_topn(model, train_csr, nrcmds=10)
+"""
+
+from .config import (SlimConfig, SLIM_OK, SLIM_ERROR, SLIM_DBG_INFO,
+                     SLIM_DBG_TIME, SLIM_DBG_PROGRESS)
+from .types import CSR
+from .api import learn, get_topn, read_model, write_model
+from .eval import determine_head_tail, evaluate_topn, EvalResult
+from .predict import predict_topn
+from . import io
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SlimConfig", "CSR", "learn", "get_topn", "read_model", "write_model",
+    "determine_head_tail", "evaluate_topn", "EvalResult", "predict_topn",
+    "io", "SLIM_OK", "SLIM_ERROR", "SLIM_DBG_INFO", "SLIM_DBG_TIME",
+    "SLIM_DBG_PROGRESS", "__version__",
+]

@@ -1,0 +1,241 @@
+// One cyclic coordinate-descent sweep for a block of B item columns against
+// the shared Gram matrix G (Hopper, sm_90a).
+//
+// Replaces two TPU kernels with one engine and two entry layouts:
+//   layout 0: slim_tpu/ops/pallas_cd.py · _sweep_kernel / pallas_cd_sweeps
+//             (row-major: gj/x/q/act are (B, npad); regs (B, 5); 128-wide
+//             chunks visited in perm order, skipped where has == 0)
+//   layout 1: slim_tpu/ops/pallas_cd.py · _sweep_kernel_large_v4 /
+//             pallas_cd_sweep_large_v4 (coordinate-major: (npad, B); regs
+//             (5, B); `group`-wide groups visited in perm order, the
+//             group's 128-wide chunks in ascending order)
+//
+// Per chunk of 128 coordinates at `base`, for every live column b:
+//   GS chain (in order i = 0..127, masked by act * live):
+//     x_i <- max(gj_i - q_i + d_i x_i - l1, 0) / (d_i + l2)
+//     q_j += dx_i * G[base+i, base+j] for the later j of the chunk
+//   propagation: q[:, all npad] += dx(chunk) . G[chunk rows, :]
+// and at the sweep end a column dies when sum(dx^2) < optTol or t0+1 >= cap.
+//
+// What bounds it on the H100: the propagation, 2*npad*B*128 FLOP per
+// active chunk (1.7e12 FLOP per full sweep at B=1024, npad=28672), while the
+// GS chain is a latency-bound sequential recurrence per column.  The TPU
+// v4 kernel deferred and windowed the q flush (through a bf16 copy of G)
+// to save HBM bandwidth under VMEM limits; here the flush is eager and
+// exact: every active chunk's deltas reach every q row before the next
+// chunk starts, in f32, so no row that a later read depends on is stale.
+//
+// Design: two launches per chunk on the caller's stream, looped on the host
+// inside slim_cd_sweep (one ctypes call per sweep), both reading perm/has
+// from device memory so no host sync is needed:
+//   gs_kernel: one thread per column; the 128x128 diagonal block of G and
+//     a per-thread copy of the chunk's q (layout [j][thread]) sit in shared
+//     memory (96 KB); deltas go to dxbuf (128, B).
+//   prop_kernel: a 128x128-tile register-blocked f32 FMA product
+//     C(MxN) += P^T Q with P, Q 128-deep and k-major, whose G rows are
+//     shared by all B columns of the tile (no per-column re-read of G).
+// A chunk with has == 0 costs two empty launches.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int CH = 128;          // coordinates per chunk
+constexpr int GS_THREADS = 64;   // columns per GS block
+constexpr int GS_SMEM = (CH * CH + CH * GS_THREADS) * 4;
+constexpr int BM = 128, BN = 128, BK = 8, PT = 256;
+
+__device__ __forceinline__ long long at(int layout, int b, int i, int B,
+                                        int npad) {
+  return layout == 0 ? static_cast<long long>(b) * npad + i
+                     : static_cast<long long>(i) * B + b;
+}
+
+__device__ __forceinline__ float reg(const float* regs, int layout, int k,
+                                     int b, int B) {
+  return layout == 0 ? regs[b * 5 + k] : regs[k * B + b];
+}
+
+__global__ void __launch_bounds__(GS_THREADS)
+gs_kernel(int layout, const float* __restrict__ G,
+          const float* __restrict__ gj, const int8_t* __restrict__ act,
+          const float* __restrict__ diag, float* __restrict__ x,
+          const float* __restrict__ q, const float* __restrict__ live,
+          const float* __restrict__ regs, const int32_t* __restrict__ perm,
+          const int32_t* __restrict__ has, int pos, int sub, int cpg, int B,
+          int npad, float* __restrict__ dxbuf, float* __restrict__ dltx) {
+  if (has[pos] == 0) return;
+  const int base = (perm[pos] * cpg + sub) * CH;
+  extern __shared__ float smem[];
+  float* gcc = smem;             // [i][j]
+  float* ql = smem + CH * CH;    // [j][thread]
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x * GS_THREADS + tid;
+  for (int e = tid; e < CH * CH; e += GS_THREADS) {
+    gcc[e] = G[static_cast<long long>(base + e / CH) * npad + base + e % CH];
+  }
+  const bool valid = b < B;
+  float l1 = 0.0f, l2 = 0.0f, lv = 0.0f;
+  if (valid) {
+    l1 = reg(regs, layout, 0, b, B);
+    l2 = reg(regs, layout, 1, b, B);
+    lv = live[b];
+    for (int j = 0; j < CH; ++j) {
+      ql[j * GS_THREADS + tid] = q[at(layout, b, base + j, B, npad)];
+    }
+  }
+  __syncthreads();
+  if (!valid) return;
+  float dsum = 0.0f;
+  for (int i = 0; i < CH; ++i) {
+    const long long a = at(layout, b, base + i, B, npad);
+    const float xi = x[a];
+    const float ok = static_cast<float>(act[a]) * lv;
+    const float di = diag[base + i];
+    const float num = gj[a] - ql[i * GS_THREADS + tid] + di * xi;
+    const float cand = fmaxf(num - l1, 0.0f) / (di + l2);
+    const float delta = ok * (cand - xi);
+    if (delta != 0.0f) {
+      const float* grow = gcc + i * CH;
+      for (int j = i + 1; j < CH; ++j) {
+        ql[j * GS_THREADS + tid] += delta * grow[j];
+      }
+    }
+    x[a] = xi + delta;
+    dxbuf[static_cast<long long>(i) * B + b] = delta;
+    dsum += delta * delta;
+  }
+  dltx[b] += dsum;
+}
+
+// C (M x N, row stride N) += P^T Q, P = (CH x M) row stride ldp,
+// Q = (CH x N) row stride ldq.  Layout 0: P = dxbuf, Q = G rows, C = q.
+// Layout 1: P = G rows, Q = dxbuf, C = qT.
+__global__ void __launch_bounds__(PT)
+prop_kernel(int layout, const float* __restrict__ G,
+            const float* __restrict__ dxbuf, float* __restrict__ C,
+            const int32_t* __restrict__ perm, const int32_t* __restrict__ has,
+            int pos, int sub, int cpg, int B, int npad) {
+  if (has[pos] == 0) return;
+  const int base = (perm[pos] * cpg + sub) * CH;
+  const float* grows = G + static_cast<long long>(base) * npad;
+  const float* P = layout == 0 ? dxbuf : grows;
+  const float* Q = layout == 0 ? grows : dxbuf;
+  const int M = layout == 0 ? B : npad;
+  const int N = layout == 0 ? npad : B;
+  const int ldp = M, ldq = N;
+
+  __shared__ float Ps[BK][BM];
+  __shared__ float Qs[BK][BN];
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < CH; k0 += BK) {
+#pragma unroll
+    for (int r = 0; r < (BK * BM) / PT; ++r) {
+      const int e = tid + r * PT;
+      const int kk = e / BM, mm = e % BM;
+      const int gm = m0 + mm, gn = n0 + mm;
+      Ps[kk][mm] = gm < M ? P[static_cast<long long>(k0 + kk) * ldp + gm] : 0.0f;
+      Qs[kk][mm] = gn < N ? Q[static_cast<long long>(k0 + kk) * ldq + gn] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[8], bq[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = Ps[kk][ty * 8 + i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bq[j] = Qs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * bq[j];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + ty * 8 + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gn < N) C[static_cast<long long>(gm) * N + gn] += acc[i][j];
+    }
+  }
+}
+
+__global__ void sweep_end_kernel(int layout, const float* __restrict__ live_in,
+                                 const float* __restrict__ regs,
+                                 const float* __restrict__ dltx,
+                                 float* __restrict__ live_out,
+                                 float* __restrict__ nit, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const float lv = live_in[b];
+  const float cap = reg(regs, layout, 2, b, B);
+  const float t0 = reg(regs, layout, 3, b, B);
+  const float tol = reg(regs, layout, 4, b, B);
+  const float keep = (dltx[b] < tol ? 0.0f : 1.0f) *
+                     ((t0 + 1.0f) < cap ? 1.0f : 0.0f);
+  nit[b] = lv;
+  live_out[b] = lv * keep;
+}
+
+}  // namespace
+
+// x and q are updated in place; dltx must arrive zeroed.  npos entries of
+// perm/has, each covering cpg consecutive chunks.
+extern "C" int slim_cd_sweep(int layout, const void* G, const void* gj,
+                             const void* act, const void* diag, void* x,
+                             void* q, const void* live_in, const void* regs,
+                             const void* perm, const void* has, int npos,
+                             int cpg, int B, int npad, void* dxbuf,
+                             void* live_out, void* nit, void* dltx,
+                             void* stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GS_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 gs_grid((B + GS_THREADS - 1) / GS_THREADS);
+  const int M = layout == 0 ? B : npad;
+  const int N = layout == 0 ? npad : B;
+  const dim3 p_grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const float* Gf = static_cast<const float*>(G);
+  const int32_t* pm = static_cast<const int32_t*>(perm);
+  const int32_t* hs = static_cast<const int32_t*>(has);
+  float* xf = static_cast<float*>(x);
+  float* qf = static_cast<float*>(q);
+  float* dx = static_cast<float*>(dxbuf);
+  for (int pos = 0; pos < npos; ++pos) {
+    for (int sub = 0; sub < cpg; ++sub) {
+      gs_kernel<<<gs_grid, GS_THREADS, GS_SMEM, s>>>(
+          layout, Gf, static_cast<const float*>(gj),
+          static_cast<const int8_t*>(act), static_cast<const float*>(diag),
+          xf, qf, static_cast<const float*>(live_in),
+          static_cast<const float*>(regs), pm, hs, pos, sub, cpg, B, npad, dx,
+          static_cast<float*>(dltx));
+      prop_kernel<<<p_grid, PT, 0, s>>>(layout, Gf, dx, qf, pm, hs, pos, sub,
+                                        cpg, B, npad);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+  }
+  sweep_end_kernel<<<(B + 255) / 256, 256, 0, s>>>(
+      layout, static_cast<const float*>(live_in),
+      static_cast<const float*>(regs), static_cast<const float*>(dltx),
+      static_cast<float*>(live_out), static_cast<float*>(nit), B);
+  return static_cast<int>(cudaGetLastError());
+}

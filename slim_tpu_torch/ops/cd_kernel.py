@@ -1,0 +1,211 @@
+"""Batched coordinate-descent block solve (port of slim_tpu/ops/cd_kernel.py).
+
+A block of B item columns is solved together against the shared Gram
+G = AᵀA: ``aTy -> G[:, j]``, ``aᵢᵀ yhat -> q[i] - G[i,i]·x[i]`` with
+``q = G x`` kept incrementally, and the nonnegative soft-threshold
+``x_i = max(num - l1r, 0) / (G[i,i] + l2r)`` of cd.c:125-128.  Per column,
+Σ(Δx)² < optTol stops the sweeps (cd.c:135-138), capped at
+min(50·nnz_j, maxniters) sweeps (estimate.c:448-449).
+
+:func:`_cd_core` is the plain-PyTorch solve: the CPU path of the solver and
+the oracle the sweep kernels (ops/cd_sweep.py) are held against.  The
+screen helpers build the union active sets of the compact path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .pack import pack_plain as pack_flat  # noqa: F401  (the pack contract)
+
+CHUNK = 128  # coordinates per Gauss-Seidel chunk
+
+
+def per_col(v, B, device):
+    """Scalar or (B,) regularisation -> (B,) float32 tensor."""
+    t = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
+    return t.expand(B) if t.numel() == 1 else t
+
+
+def screen(gj, j_ids, l1v, col_ids=None):
+    """Active set of the screening path (estimate.c:412-421): G[i,j] > l1r,
+    i != j.  ``col_ids`` maps positions to coordinates in compact space."""
+    B, width = gj.shape
+    ids = col_ids if col_ids is not None else \
+        torch.arange(width, device=gj.device, dtype=j_ids.dtype)
+    return (gj > l1v[:, None]) & (ids[None, :] != j_ids[:, None])
+
+
+def count_over(x, eps):
+    """Per-column model nnz: count of entries > eps (slim.h:61)."""
+    return (x > eps).sum(dim=1, dtype=torch.int32)
+
+
+def block_union_flags(G, nblocks, B, l1r):
+    """u (nblocks, npad) bool: coordinate i is active for some column of
+    block b (columns [b*B, (b+1)*B), self excluded), in one slice-reduce
+    pass over G."""
+    npad = G.shape[0]
+    total = nblocks * B
+    Gb = G[:, :min(total, npad)]
+    if total > npad:
+        Gb = torch.nn.functional.pad(Gb, (0, total - npad))
+    over = (Gb > l1r).reshape(npad, nblocks, B)
+    cnt = over.sum(dim=2)                                   # (npad, nblocks)
+    rows = torch.arange(npad, device=G.device)
+    self_block = rows // B
+    self_over = torch.diagonal(G) > l1r
+    self_term = ((torch.arange(nblocks, device=G.device)[None, :]
+                  == self_block[:, None])
+                 & self_over[:, None] & (rows < min(total, npad))[:, None])
+    return ((cnt - self_term.to(cnt.dtype)) > 0).T
+
+
+def compact_union_ids(u):
+    """(ids (nblocks, npad) int32, counts (nblocks,) int32): block b's
+    flagged coordinates ascending, padded with npad-1 (the zero row/col)."""
+    npad = u.shape[1]
+    iota = torch.arange(npad, dtype=torch.int32, device=u.device)
+    keys = torch.where(u, iota[None, :], torch.tensor(1 << 30, dtype=torch.int32,
+                                                      device=u.device))
+    ids = torch.minimum(torch.sort(keys, dim=1).values,
+                        torch.tensor(npad - 1, dtype=torch.int32,
+                                     device=u.device))
+    return ids, u.sum(dim=1, dtype=torch.int32)
+
+
+def block_union_mask(G, j_ids, l1r, K):
+    """Union active set of one block: (S (K,) ascending ids padded with
+    npad-1, true union count)."""
+    npad = G.shape[0]
+    gj = G[:, j_ids.long()].T
+    B = gj.shape[0]
+    u = screen(gj, j_ids, per_col(l1r, B, G.device)).any(dim=0)
+    count = int(u.sum())
+    cols = torch.arange(npad, device=G.device, dtype=j_ids.dtype)
+    key = torch.where(u, cols, cols + npad)
+    order = torch.argsort(key)[:K]
+    pos = torch.arange(K, device=G.device)
+    S = torch.where(pos < count, order.to(j_ids.dtype), npad - 1)
+    return S, count
+
+
+def _solve(impl, G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol, gen,
+           shuffle, x0_zero):
+    if impl == "plain":
+        return _cd_core(G, gj, diag, active, x0, caps, yty, l1v, l2v,
+                        optTol, gen, shuffle)
+    from .cd_sweep import solve_core, solve_large_core
+
+    if impl == "sweep":
+        return solve_core(G, gj, diag, active, x0, caps, yty, l1v, l2v,
+                          optTol, gen, shuffle)
+    if impl == "sweep_large":
+        return solve_large_core(G, gj, diag, active, x0, caps, yty, l1v, l2v,
+                                optTol, gen, shuffle, x0_zero=x0_zero)
+    raise ValueError(f"unknown block-solve impl {impl!r}")
+
+
+def cd_solve_block_ids(G, j_ids, caps, x0, l1r, l2r, optTol, gen,
+                       shuffle=True, impl="plain", x0_zero=False):
+    """Solve the B columns ``j_ids`` over the full coordinate space
+    (padded entries point at the zero column npad-1 with cap 0)."""
+    B = j_ids.shape[0]
+    diag = torch.diagonal(G)
+    gj = G[:, j_ids.long()].T.contiguous()                  # (B, npad)
+    l1v, l2v = per_col(l1r, B, G.device), per_col(l2r, B, G.device)
+    active = screen(gj, j_ids, l1v)
+    yty = diag[j_ids.long()]
+    return _solve(impl, G, gj, diag, active, x0, caps, yty, l1v, l2v,
+                  optTol, gen, shuffle, x0_zero)
+
+
+def cd_solve_block_compact(G, S, j_ids, caps, x0s, l1r, l2r, optTol, gen,
+                           shuffle=True, impl="plain", x0_zero=False):
+    """Solve a block in the compact coordinate space S (exact: coordinates
+    outside S are inactive for every column of the block)."""
+    npad = G.shape[0]
+    B = j_ids.shape[0]
+    Sl = S.long()
+    l1v, l2v = per_col(l1r, B, G.device), per_col(l2r, B, G.device)
+    Gs = G.index_select(0, Sl).index_select(1, Sl)          # (K, K)
+    diag_full = torch.diagonal(G)
+    diag_s = diag_full[Sl]
+    gjs = G[:, j_ids.long()].T[:, Sl].contiguous()          # (B, K)
+    yty = diag_full[j_ids.long()]
+    active = screen(gjs, j_ids, l1v, col_ids=S) & (S != npad - 1)[None, :]
+    return _solve(impl, Gs, gjs, diag_s, active, x0s, caps, yty, l1v, l2v,
+                  optTol, gen, shuffle, x0_zero)
+
+
+def block_stats(x, q, gj, yty, l1v, l2v):
+    """½||y - Ax||² = ½(yᵀy - 2xᵀ(Aᵀy) + xᵀGx) and the full objective
+    per column (estimate.c:477-489), from q = Gx."""
+    rnorm = 0.5 * (yty - 2.0 * (x * gj).sum(1) + (x * q).sum(1))
+    obj = rnorm + 0.5 * l2v * (x * x).sum(1) + l1v * x.abs().sum(1)
+    return rnorm, obj
+
+
+def _cd_core(G, gj, diag, active, x0, col_maxniters, yty, l1r, l2r, optTol,
+             gen, shuffle=True):
+    """Solve B columns against shared G (plain PyTorch).
+
+    G (n, n), gj (B, n), diag (n,), active (B, n) bool, x0 (B, n),
+    col_maxniters (B,) int, yty (B,); l1r/l2r scalar or (B,); ``gen`` a
+    torch.Generator for the visit order: a shuffled chunk order and a
+    shuffled order within chunks per sweep (cd.c:115 shuffles the active
+    list; any decorrelated order reaches the same optimum).
+
+    Returns (x, niters, converged, rnorm, obj) per column.
+    """
+    B, n = gj.shape
+    dev = gj.device
+    assert n % CHUNK == 0, "pad the coordinate dimension to a CHUNK multiple"
+    l1v, l2v = per_col(l1r, B, dev), per_col(l2r, B, dev)
+    caps = col_maxniters.to(dev)
+    x = torch.where(active, x0, 0.0)
+    any_act = active.any(dim=1)
+    tmax = int(torch.where(any_act, caps, 0).max()) if B else 0
+    nchunks = n // CHUNK
+    converged = torch.zeros(B, dtype=torch.bool, device=dev)
+    niters = torch.zeros(B, dtype=torch.int32, device=dev)
+    t = 0
+    while t < tmax:
+        live = (~converged) & (t < caps)
+        if not bool(live.any()):
+            break
+        q = x @ G                                  # exact q at sweep start
+        if shuffle:
+            chunk_perm = torch.randperm(nchunks, generator=gen).tolist()
+            inner = torch.randperm(CHUNK, generator=gen).tolist()
+        else:
+            chunk_perm, inner = range(nchunks), range(CHUNK)
+        dltx = torch.zeros(B, dtype=torch.float32, device=dev)
+        for cc in chunk_perm:
+            sl = slice(cc * CHUNK, (cc + 1) * CHUNK)
+            a_loc = active[:, sl]
+            if not bool((a_loc & live[:, None]).any()):
+                continue
+            Gloc = G[sl]
+            Gcc = Gloc[:, sl]
+            gj_loc, d_loc = gj[:, sl], diag[sl]
+            x_old = x[:, sl].clone()
+            x_loc, q_loc = x_old.clone(), q[:, sl].clone()
+            for i in inner:
+                xi = x_loc[:, i]
+                num = gj_loc[:, i] - q_loc[:, i] + d_loc[i] * xi
+                cand = torch.where(num > l1v, (num - l1v) / (d_loc[i] + l2v),
+                                   0.0)
+                newx = torch.where(a_loc[:, i] & live, cand, xi)
+                q_loc += (newx - xi)[:, None] * Gcc[i][None, :]
+                x_loc[:, i] = newx
+            dx = x_loc - x_old
+            q = q + dx @ Gloc
+            x[:, sl] = x_loc
+            dltx += (dx * dx).sum(dim=1)
+        converged |= live & (dltx < optTol)
+        niters += live.to(torch.int32)
+        t += 1
+    q = x @ G
+    rnorm, obj = block_stats(x, q, gj, yty, l1v, l2v)
+    return x, niters, converged, rnorm, obj

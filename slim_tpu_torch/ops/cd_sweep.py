@@ -1,0 +1,275 @@
+"""CD sweep kernels and the block-solve loops around them (port of
+slim_tpu/ops/pallas_cd.py).
+
+Two entry points share one CUDA engine (csrc/sweep.cu):
+
+* :func:`cd_sweep` replaces ``_sweep_kernel`` / ``pallas_cd_sweeps``:
+  row-major (B, npad) operands, 128-wide chunks in ``perm`` order,
+  chunks with ``has == 0`` skipped.
+* :func:`cd_sweep_large` replaces ``_sweep_kernel_large_v4`` /
+  ``pallas_cd_sweep_large_v4``: coordinate-major (npad, B) operands,
+  ``group``-wide groups in ``perm`` order.  The TPU kernel deferred its q
+  flush over K_FLUSH-group windows through a bf16 (tiled) copy ``Gq`` and
+  flushed only live panels (``panarr``); those are VMEM/bandwidth devices
+  of the TPU.  Here every active chunk's deltas reach every q row before
+  the next chunk, in float32, so ``Gq`` and ``panarr`` are dropped and no
+  row a later read depends on is ever stale.
+
+One call = one sweep: for each active chunk a Gauss-Seidel chain over its
+128 coordinates (masked by active * live) and the propagation
+``q += dx · G[chunk, :]``; at the end a column dies when Σdx² < optTol or
+``t0 + 1 >= cap``.  Each entry has a plain PyTorch version used for CPU
+tensors and as the on-card reference.
+
+:func:`solve_core` / :func:`solve_large_core` are the counterparts of
+``pallas_solve_core`` and ``_solve_large_core_v4``: a Python loop of one
+launch per sweep that carries live / converged / niters exactly as the
+JAX while-loops do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .cd_kernel import CHUNK, block_stats
+
+GROUP = 512      # coordinates per group of the large sweep
+Q_REFRESH = 8    # sweeps between exact q = G x refreshes (large sweep)
+
+
+def _plain_chunks(G, gj, act, x, q, lv, diag, l1, l2, chunks):
+    """Row-major sweep body over ``chunks`` (ids in visit order): updates
+    x, q in place and returns Σdx² per column."""
+    B = gj.shape[0]
+    dltx = torch.zeros(B, dtype=torch.float32, device=gj.device)
+    for c in chunks:
+        sl = slice(c * CHUNK, (c + 1) * CHUNK)
+        okf = act[:, sl].to(torch.float32) * lv[:, None]
+        gcc = G[sl, sl]
+        gjl, xl, d = gj[:, sl], x[:, sl], diag[sl]
+        ql = q[:, sl].clone()
+        dx = torch.zeros((B, CHUNK), dtype=torch.float32, device=gj.device)
+        for i in range(CHUNK):
+            num = gjl[:, i] - ql[:, i] + d[i] * xl[:, i]
+            cand = torch.clamp(num - l1, min=0.0) / (d[i] + l2)
+            delta = okf[:, i] * (cand - xl[:, i])
+            ql += delta[:, None] * gcc[i][None, :]
+            dx[:, i] = delta
+        x[:, sl] = xl + dx
+        q += dx @ G[sl]
+        dltx += (dx * dx).sum(dim=1)
+    return dltx
+
+
+def _end_of_sweep(lv, dltx, cap, t0, tol):
+    keep = (dltx >= tol) & (t0 + 1.0 < cap)
+    return lv * keep.to(torch.float32)
+
+
+def _chunk_order(perm, has, cpg):
+    """Host list of the chunks to run: each perm entry covers cpg chunks."""
+    return [p * cpg + s for p, h in zip(perm.tolist(), has.tolist()) if h
+            for s in range(cpg)]
+
+
+def cd_sweep_plain(G, gj, act, x, q, live, diag2d, regs, perm, has):
+    """Plain PyTorch version of :func:`cd_sweep` (same contract)."""
+    x, q = x.clone(), q.clone()
+    lv = live[:, 0]
+    l1, l2, cap, t0, tol = regs.unbind(dim=1)
+    dltx = _plain_chunks(G, gj, act, x, q, lv, diag2d[0], l1, l2,
+                         _chunk_order(perm.reshape(-1), has.reshape(-1), 1))
+    lo = _end_of_sweep(lv, dltx, cap, t0, tol)
+    return x, q, lo[:, None], lv[:, None].clone(), dltx[:, None]
+
+
+def cd_sweep_large_plain(G, gjT, actT, xT, qT, live, diag2d, regsT, perm,
+                         has):
+    """Plain PyTorch version of :func:`cd_sweep_large` (same contract)."""
+    x, q = xT.T.contiguous(), qT.T.contiguous()
+    lv = live[0]
+    l1, l2, cap, t0, tol = regsT.unbind(dim=0)
+    dltx = _plain_chunks(G, gjT.T, actT.T, x, q, lv, diag2d[0], l1, l2,
+                         _chunk_order(perm, has, GROUP // CHUNK))
+    lo = _end_of_sweep(lv, dltx, cap, t0, tol)
+    return (x.T.contiguous(), q.T.contiguous(), lo[None, :],
+            lv[None, :].clone(), dltx[None, :])
+
+
+def _check(G, gj, act, x, q, live, diag2d, regs, perm, has, npad, B, group):
+    f32 = (G, gj, x, q, live, diag2d, regs)
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in f32):
+        raise ValueError("G/gj/x/q/live/diag/regs must be contiguous float32")
+    if act.dtype != torch.int8 or not act.is_contiguous() \
+            or act.shape != gj.shape:
+        raise ValueError("act must be contiguous int8 shaped like gj")
+    if G.shape != (npad, npad) or x.shape != gj.shape or q.shape != gj.shape:
+        raise ValueError("G must be (npad, npad); x/q shaped like gj")
+    if npad % group or group % CHUNK:
+        raise ValueError(f"npad {npad} must be a multiple of {group}")
+    if perm.dtype != torch.int32 or has.dtype != torch.int32 \
+            or perm.numel() != npad // group or has.numel() != perm.numel():
+        raise ValueError("perm/has must be int32 with one entry per "
+                         "chunk/group")
+    if live.numel() != B or regs.numel() != 5 * B or diag2d.numel() != npad:
+        raise ValueError("live (B), regs (5B), diag (npad) sizes")
+    if len({t.device for t in (*f32, act, perm, has)}) != 1:
+        raise ValueError("all sweep operands must be on one device")
+
+
+def _launch(layout, G, gj, act, x, q, live, diag2d, regs, perm, has, cpg,
+            B, npad):
+    xo, qo = x.clone(), q.clone()
+    lo, nit = torch.empty_like(live), torch.empty_like(live)
+    dltx = torch.zeros_like(live)
+    dxbuf = torch.empty(CHUNK * B, dtype=torch.float32, device=x.device)
+    perm, has = perm.contiguous(), has.contiguous()
+    _build.check(_build.lib().slim_cd_sweep(
+        layout, G.data_ptr(), gj.data_ptr(), act.data_ptr(),
+        diag2d.data_ptr(), xo.data_ptr(), qo.data_ptr(), live.data_ptr(),
+        regs.data_ptr(), perm.data_ptr(), has.data_ptr(), perm.numel(), cpg,
+        B, npad, dxbuf.data_ptr(), lo.data_ptr(), nit.data_ptr(),
+        dltx.data_ptr(), _build.stream_ptr(x.device)), "slim_cd_sweep")
+    return xo, qo, lo, nit, dltx
+
+
+def cd_sweep(G, gj, act, x, q, live, diag2d, regs, perm, has):
+    """One row-major CD sweep.  G (npad, npad) f32; gj/x/q (B, npad) f32;
+    act (B, npad) int8; live (B, 1) f32 0/1; diag2d (1, npad); regs (B, 5)
+    = per-column [l1r, l2r, cap, t0, optTol]; perm/has (nchunks,) int32.
+    Returns (x', q', live', nit = live at sweep start, dltx = Σdx²), the
+    last three (B, 1)."""
+    B, npad = gj.shape
+    perm, has = perm.reshape(-1), has.reshape(-1)
+    _check(G, gj, act, x, q, live, diag2d, regs, perm, has, npad, B, CHUNK)
+    if gj.device.type == "cpu":
+        return cd_sweep_plain(G, gj, act, x, q, live, diag2d, regs, perm, has)
+    if gj.device.type != "cuda":
+        raise ValueError(f"cd_sweep: unsupported device {gj.device}")
+    cd_sweep.launches += 1
+    return _launch(0, G, gj, act, x, q, live, diag2d, regs, perm, has, 1,
+                   B, npad)
+
+
+cd_sweep.launches = 0
+
+
+def cd_sweep_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has):
+    """One coordinate-major CD sweep.  gjT/xT/qT (npad, B) f32; actT
+    (npad, B) int8; live (1, B); regsT (5, B); perm/has (npad // GROUP,)
+    int32, groups visited in perm order, a group's chunks in ascending
+    order.  Returns (xT', qT', live', nit, dltx), the last three (1, B)."""
+    npad, B = gjT.shape
+    _check(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has, npad, B,
+           GROUP)
+    if gjT.device.type == "cpu":
+        return cd_sweep_large_plain(G, gjT, actT, xT, qT, live, diag2d,
+                                    regsT, perm, has)
+    if gjT.device.type != "cuda":
+        raise ValueError(f"cd_sweep_large: unsupported device {gjT.device}")
+    cd_sweep_large.launches += 1
+    return _launch(1, G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has,
+                   GROUP // CHUNK, B, npad)
+
+
+cd_sweep_large.launches = 0
+
+
+def _start(active, x0, caps):
+    """Masked x0, sweep bound and the live/converged starting masks:
+    empty-active columns converge trivially on their first sweep (the
+    reference runs CD over 0 coords, dltx = 0 < optTol)."""
+    any_act = active.any(dim=1)
+    caps = caps.to(active.device)
+    tmax = int(torch.where(any_act, caps, 0).max()) if caps.numel() else 0
+    live0 = (any_act & (caps > 0)).to(torch.float32)
+    conv0 = (~any_act) & (caps > 0)
+    return torch.where(active, x0, 0.0), tmax, live0, conv0
+
+
+def _perm(n, gen, shuffle, device):
+    p = torch.randperm(n, generator=gen) if shuffle else torch.arange(n)
+    return p.to(device=device, dtype=torch.int32)
+
+
+def solve_core(G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol, gen,
+               shuffle=True):
+    """Block solve on :func:`cd_sweep` (counterpart of
+    ``pallas_solve_core``): exact q = x G at every sweep start, chunks
+    whose active coordinates all belong to dead columns skipped.  Returns
+    (x, niters, converged, rnorm, obj)."""
+    B, npad = gj.shape
+    dev = gj.device
+    nchunks = npad // CHUNK
+    act_i8 = active.to(torch.int8).contiguous()
+    act_f = active.to(torch.float32)
+    diag2d = diag.reshape(1, npad).to(torch.float32).contiguous()
+    caps_f = caps.to(device=dev, dtype=torch.float32)
+    x, tmax, live, conv = _start(active, x0, caps)
+    live = live[:, None]
+    niters = torch.zeros(B, dtype=torch.float32, device=dev)
+    t = 0
+    while t < tmax and bool((live > 0).any()):
+        perm = _perm(nchunks, gen, shuffle, dev)
+        chunk_any = (act_f * live).sum(dim=0).reshape(nchunks, CHUNK) \
+            .sum(dim=1) > 0
+        has = chunk_any[perm.long()].to(torch.int32)
+        regs = torch.stack([l1v, l2v, caps_f, torch.full_like(l1v, float(t)),
+                            torch.full_like(l1v, float(optTol))], dim=1)
+        q = x @ G
+        x, _, liven, nit, dl = cd_sweep(G, gj, act_i8, x, q, live, diag2d,
+                                        regs.contiguous(), perm, has)
+        died = (live[:, 0] > 0) & (liven[:, 0] == 0)
+        conv = conv | (died & (dl[:, 0] < optTol))
+        niters += nit[:, 0]
+        live = liven
+        t += 1
+    q = x @ G
+    rnorm, obj = block_stats(x, q, gj, yty, l1v, l2v)
+    return x, niters.to(torch.int32), conv, rnorm, obj
+
+
+def solve_large_core(G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol,
+                     gen, shuffle=True, x0_zero=False):
+    """Block solve on :func:`cd_sweep_large` (counterpart of
+    ``_solve_large_core_v4``): operands transposed once, q carried between
+    sweeps and refreshed exactly (``G xᵀ``, a torch matmul outside the
+    kernel) every Q_REFRESH sweeps, active groups clustered first in the
+    visit order, stats from the carried q.  Returns (x, niters, converged,
+    rnorm, obj)."""
+    B, npad = gj.shape
+    dev = gj.device
+    ngroups = npad // GROUP
+    actT = active.T.to(torch.int8).contiguous()
+    gjT = gj.T.contiguous()
+    diag2d = diag.reshape(1, npad).to(torch.float32).contiguous()
+    caps_f = caps.to(device=dev, dtype=torch.float32)
+    x, tmax, live, conv = _start(active, x0, caps)
+    xT = x.T.contiguous()
+    live = live[None, :]
+    ga = active.T.to(torch.float32).reshape(ngroups, GROUP, B).amax(dim=1)
+    qT = torch.zeros_like(xT) if x0_zero else G @ xT
+    niters = torch.zeros(B, dtype=torch.float32, device=dev)
+    t = 0
+    while t < tmax and bool((live > 0).any()):
+        perm = _perm(ngroups, gen, shuffle, dev).long()
+        group_any = (ga @ live[0]) > 0
+        inactive = (~group_any[perm]).to(torch.int32)
+        perm = perm[torch.sort(inactive, stable=True).indices]
+        has = group_any[perm].to(torch.int32)
+        regsT = torch.stack([l1v, l2v, caps_f, torch.full_like(l1v, float(t)),
+                             torch.full_like(l1v, float(optTol))], dim=0)
+        if t % Q_REFRESH == 0 and t > 0:
+            qT = G @ xT
+        xT, qT, liven, nit, dl = cd_sweep_large(
+            G, gjT, actT, xT, qT, live, diag2d, regsT.contiguous(),
+            perm.to(torch.int32), has)
+        died = (live[0] > 0) & (liven[0] == 0)
+        conv = conv | (died & (dl[0] < optTol))
+        niters += nit[0]
+        live = liven
+        t += 1
+    x = xT.T
+    rnorm, obj = block_stats(x, qT.T, gj, yty, l1v, l2v)
+    return x.contiguous(), niters.to(torch.int32), conv, rnorm, obj

@@ -1,0 +1,226 @@
+"""Coordinate-descent model estimation (port of slim_tpu/solvers/cd.py,
+single device).
+
+Item columns are solved in blocks of B against the shared Gram.  Columns
+are relabelled by training frequency (rank r = the r-th most-rated item),
+so blocks are consecutive rank ranges with similar sweep caps and the
+active-set screen concentrates in the low ranks.  Wide catalogues solve
+each block in its union-active-set space (compact path), snapped to full
+width when the union covers more than COMPACT_FRAC of it.  Each
+solved block is harvested by count_over -> offsets -> the pack kernel ->
+host, and the model is assembled with scipy (estimate.c:570-593), keeping
+entries > 1e-7 (estimate.c:492-505).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from collections import Counter
+
+import numpy as np
+import torch
+
+from ..config import (SlimConfig, SLIM_DBG_INFO, SLIM_DBG_PROGRESS,
+                      SLIM_DBG_TIME, dbg)
+from ..ops.cd_kernel import (block_union_flags, cd_solve_block_compact,
+                             cd_solve_block_ids, compact_union_ids,
+                             count_over)
+from ..ops.cd_sweep import GROUP
+from ..ops.gram import compute_gram, pin_f32
+from ..ops.pack import pack
+from ..types import CSR
+from ..utils import nnz_bucket, resolve_device
+
+logger = logging.getLogger("slim_tpu_torch")
+
+EPSILON = 1e-7   # model nonzero threshold (reference def.h:14)
+COMPACT_BMAX = 1024  # widest block on the compact path
+# unions wider than this share of npad solve full width: the compact
+# gathers cost more than the 1-(K/npad)^2 of sweep work they save
+COMPACT_FRAC = 0.75
+
+
+def bucket_npad(n: int) -> int:
+    """Pad the coordinate dimension to {256, 384, 512, 768, 1024, ...}
+    (powers of two plus 1.5x steps), by 4096 above 16384; always > n so
+    npad-1 is a zero row/column."""
+    m = 256
+    while m + m // 2 < 16384:
+        if n + 1 <= m:
+            return m
+        if n + 1 <= m + m // 2:
+            return m + m // 2
+        m *= 2
+    if n + 1 <= 16384:
+        return 16384
+    return ((n + 1 + 4095) // 4096) * 4096
+
+
+def pick_impl(width: int, device: torch.device, compact_threshold: int) -> str:
+    """Block-solve route for a coordinate width.  On the CPU the plain
+    solve (ops/cd_kernel._cd_core).  On the card there is no VMEM budget
+    to split around: both sweep kernels take any B (the GS kernel holds
+    64 columns per 96 KB block of shared memory, the propagation tiles
+    128x128 outputs), so every block runs whole, on the row-major sweep up
+    to ``compact_threshold`` and on the coordinate-major one above it."""
+    if device.type != "cuda":
+        return "plain"
+    if width <= compact_threshold or width % GROUP:
+        return "sweep"
+    return "sweep_large"
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def estimate_model_cd(train: CSR, cfg: SlimConfig, device=None):
+    """Estimate the SLIM model with batched coordinate descent on
+    ``device`` (default: the card when present).
+
+    Returns ``(model, stats)``: model is a CSR with rows = rated item,
+    cols = target item (estimate.c:570-593); stats carries loss/fit/nnz,
+    the summed per-column sweeps, and ``phases`` (seconds per phase)."""
+    dev = resolve_device(device)
+    pin_f32()
+    t_start = time.perf_counter()
+    phases = Counter()
+
+    def lap(name, t0):
+        _sync(dev)
+        t1 = time.perf_counter()
+        phases[name] += t1 - t0
+        return t1
+
+    n = train.ncols
+    npad = bucket_npad(n)
+    B = int(cfg.block_size)
+    if train.nnz == 0:
+        model = CSR.from_ijv(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                             np.zeros(0, np.float32), nrows=n, ncols=n,
+                             no_duplicates=True)
+        return model, {"loss": 0.0, "fit": 0.0, "ffrac": 0.0, "nnz": 0,
+                       "niters": 0, "sweeps": 0, "phases": {}}
+
+    t = time.perf_counter()
+    g_raw = compute_gram(train, cfg.gram, pad_to=npad, device=dev)
+    t = lap("gram", t)
+
+    nnz_col = train.col_nnz()
+    col_caps = np.minimum(50 * nnz_col, cfg.maxniters).astype(np.int32)
+    p = np.argsort(-nnz_col, kind="stable").astype(np.int32)  # rank -> item
+    p_pad = torch.from_numpy(np.concatenate(
+        [p, np.arange(n, npad, dtype=np.int32)]).astype(np.int64)).to(dev)
+    g = g_raw.index_select(0, p_pad).index_select(1, p_pad)
+    del g_raw
+    caps_p = col_caps[p]
+
+    use_compact = npad > int(cfg.compact_threshold)
+    if use_compact:
+        B = min(B, COMPACT_BMAX)
+    nblocks = (n + B - 1) // B
+
+    union = {}   # blk -> (K, S on device, S on host) for compact blocks
+    if use_compact:
+        u = block_union_flags(g, nblocks, B, float(cfg.l1r))
+        s_dev, cnt = compact_union_ids(u)
+        del u
+        for blk, c in enumerate(cnt.cpu().numpy()):
+            K = min(bucket_npad(max(int(c), 1)), npad)
+            if K <= COMPACT_FRAC * npad and K < npad:
+                S = s_dev[blk, :K].contiguous()
+                union[blk] = (K, S, S.cpu().numpy())
+        if dbg(cfg, SLIM_DBG_TIME):
+            widths = Counter(union[b][0] if b in union else npad
+                             for b in range(nblocks))
+            logger.info("union widths: %s", " ".join(
+                f"{k}:{v}" for k, v in sorted(widths.items())))
+    t = lap("relabel+screen", t)
+
+    coords, targets, vals = [], [], []
+    total_err = total_obj = 0.0
+    total_niters = sweeps = 0
+    for blk in range(nblocks):
+        r0 = blk * B
+        nJ = min(B, n - r0)
+        Jpad = np.full(B, npad - 1, dtype=np.int32)   # pad -> zero column
+        Jpad[:nJ] = np.arange(r0, r0 + nJ, dtype=np.int32)
+        caps = np.zeros(B, dtype=np.int32)
+        caps[:nJ] = caps_p[r0:r0 + nJ]
+        J = torch.from_numpy(Jpad).to(dev)
+        caps_d = torch.from_numpy(caps).to(dev)
+        gen = torch.Generator().manual_seed(int(cfg.seed) + blk)
+        args = (float(cfg.l1r), float(cfg.l2r), float(cfg.optTol), gen)
+        kw = dict(shuffle=cfg.shuffle, x0_zero=True)
+        if blk in union:
+            K, S, S_h = union[blk]
+            x0 = torch.zeros((B, K), dtype=torch.float32, device=dev)
+            out = cd_solve_block_compact(
+                g, S, J, caps_d, x0, *args,
+                impl=pick_impl(K, dev, cfg.compact_threshold), **kw)
+        else:
+            S_h = None
+            x0 = torch.zeros((B, npad), dtype=torch.float32, device=dev)
+            out = cd_solve_block_ids(
+                g, J, caps_d, x0, *args,
+                impl=pick_impl(npad, dev, cfg.compact_threshold), **kw)
+        t = lap("solve", t)
+
+        # harvest: counts -> offsets -> pack kernel -> host
+        x = out[0].contiguous()
+        c = count_over(x, EPSILON).cpu().numpy().astype(np.int64)
+        c[nJ:] = 0
+        off = np.zeros(B, np.int32)
+        np.cumsum(c[:-1], out=off[1:])
+        T = int(c.sum())
+        fv, fi = pack(x, torch.from_numpy(off).to(dev), EPSILON,
+                      nnz_bucket(max(T, 1), floor=128))
+        va = fv[:T].cpu().numpy()
+        ia = fi[:T].cpu().numpy().astype(np.int64)
+        st = torch.stack([o[:nJ].to(torch.float64) for o in out[1:]]) \
+            .cpu().numpy()
+
+        rows = np.repeat(np.arange(B, dtype=np.int64), c)
+        cp = S_h[ia].astype(np.int64) if S_h is not None else ia
+        keep = cp < n
+        coords.append(p[cp[keep]])
+        targets.append(p[r0 + rows[keep]])
+        vals.append(va[keep])
+        niters_h, rstatus_h, rnorm_h, obj_h = st
+        total_err += float(rnorm_h.sum())
+        total_obj += float(obj_h.sum())
+        total_niters += int(niters_h.sum())
+        sweeps += int(niters_h.max()) if nJ else 0
+        if dbg(cfg, SLIM_DBG_PROGRESS):
+            for b in range(nJ):
+                j = p[r0 + b]
+                logger.info("Col: %5d %5d rs: %d nits: %4d nnz: %4d "
+                            "rsd: %.2e obj: %.2e", j, int(nnz_col[j]),
+                            int(rstatus_h[b]), int(niters_h[b]), int(c[b]),
+                            rnorm_h[b], obj_h[b])
+        t = lap("harvest", t)
+
+    model = CSR.from_ijv(np.concatenate(coords), np.concatenate(targets),
+                         np.concatenate(vals), nrows=n, ncols=n,
+                         no_duplicates=True)
+    lap("assembly", t)
+    stats = {
+        "loss": total_obj,
+        "fit": total_err,
+        "ffrac": total_err / total_obj if total_obj else 0.0,
+        "nnz": model.nnz,
+        "niters": total_niters,
+        "sweeps": sweeps,
+        "phases": dict(phases),
+    }
+    if dbg(cfg, SLIM_DBG_TIME):
+        logger.info("cd phases: %s (total %.2fs)", "  ".join(
+            f"{k} {v:.2f}s" for k, v in phases.items()),
+            time.perf_counter() - t_start)
+    if dbg(cfg, SLIM_DBG_INFO):
+        logger.info(
+            "Done estimation: loss: %.5e, fit: %.5e, ffrac: %.3f,  #nzs: %d",
+            stats["loss"], stats["fit"], stats["ffrac"], stats["nnz"])
+    return model, stats

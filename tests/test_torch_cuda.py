@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+ragged shapes the main path does not reach (block sizes off the kernels'
+tile multiples, output slices).  Needs an NVIDIA card and nvcc; skipped
+elsewhere.  Run on the card with ``python -m pytest -m cuda
+tests/test_torch_cuda.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import random_csr
+from slim_tpu_torch.ops import cd_sweep as S
+from slim_tpu_torch.ops import densify as D
+from slim_tpu_torch.ops import gram as G
+from slim_tpu_torch.ops import pack as P
+from slim_tpu_torch.ops.cd_kernel import _cd_core, per_col, screen
+from slim_tpu_torch.types import CSR
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    G.pin_f32()
+    return torch.device("cuda", 0)
+
+
+def test_densify_ragged_and_sliced(dev, rng):
+    npad, W, R = 384, 40, 300
+    ids = rng.integers(-2, npad + 3, (W, R)).astype(np.int32)
+    vals = rng.integers(1, 4, (W, R)).astype(np.float32)
+    idsT, valsT = torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev)
+    wmax = D.densify_meta(idsT, npad)
+    wide = torch.zeros((npad, R + 17), device=dev)
+    got = D.densify(idsT, valsT, wmax, npad, out=wide[:, 5:5 + R])
+    ref = D.densify_plain(idsT, valsT, wmax, npad,
+                          torch.zeros((npad, R), device=dev))
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert wide[:, :5].abs().sum() == 0 and wide[:, 5 + R:].abs().sum() == 0
+    g8 = D.densify(idsT, None, wmax, npad, out_dtype=torch.int8)
+    r8 = D.densify_plain(idsT, None, wmax, npad, torch.zeros(
+        (npad, R), dtype=torch.int8, device=dev))
+    assert torch.equal(g8, r8)
+
+
+def test_pack_ragged(dev, rng):
+    B, K = 5, 700
+    x = np.where(rng.random((B, K)) < 0.3, rng.random((B, K)) + 0.5, 0) \
+        .astype(np.float32)
+    c = (x > np.float32(1e-7)).sum(1)
+    off = np.zeros(B, np.int32)
+    np.cumsum(c[:-1], out=off[1:])
+    xd, od = torch.from_numpy(x).to(dev), torch.from_numpy(off).to(dev)
+    Tpad = int(c.sum()) - 3          # the last entries fall off the end
+    got, ref = P.pack(xd, od, 1e-7, Tpad), P.pack_plain(xd, od, 1e-7, Tpad)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _solve_inputs(dev, rng, n, npad, B):
+    mat = random_csr(rng, 3 * n, n, density=0.08)
+    Gm = G.compute_gram(CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr,
+                                        mat.indices, mat.data), "device",
+                        pad_to=npad, device=dev)
+    J = torch.arange(B, device=dev, dtype=torch.int32) % n
+    gj = Gm[:, J.long()].T.contiguous()
+    act = screen(gj, J, per_col(0.3, B, dev))
+    caps = torch.full((B,), 100, dtype=torch.int32, device=dev)
+    diag = torch.diagonal(Gm)
+    return Gm, gj, diag, act, caps, diag[J.long()]
+
+
+@pytest.mark.parametrize("impl,npad,B", [("sweep", 384, 50),
+                                         ("sweep_large", 1024, 70)])
+def test_solve_on_card_matches_plain_oracle(dev, rng, impl, npad, B):
+    Gm, gj, diag, act, caps, yty = _solve_inputs(dev, rng, 200, npad, B)
+    l1, l2 = per_col(0.3, B, dev), per_col(0.5, B, dev)
+    x0 = torch.zeros_like(gj)
+    fn = S.solve_core if impl == "sweep" else S.solve_large_core
+    launches = (S.cd_sweep if impl == "sweep" else S.cd_sweep_large).launches
+    got = fn(Gm, gj, diag, act, x0, caps, yty, l1, l2, 1e-10, None,
+             shuffle=False)
+    assert (S.cd_sweep if impl == "sweep"
+            else S.cd_sweep_large).launches > launches
+    cpu = [t.cpu() for t in (Gm, gj, diag, act, x0, caps, yty)]
+    ref = _cd_core(*cpu, 0.3, 0.5, 1e-10, None, shuffle=False)
+    torch.testing.assert_close(got[0].cpu(), ref[0], rtol=0, atol=2e-4)
+    torch.testing.assert_close(got[4].cpu(), ref[4], rtol=1e-4, atol=1e-4)
+
+
+def test_gram_on_card_matches_host(dev, rng):
+    for implicit in (True, False):
+        mat = random_csr(rng, 300, 150, density=0.1, implicit=implicit)
+        m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices,
+                            mat.data)
+        got = G.gram_device(m, pad_to=256, device=dev).cpu().numpy()
+        np.testing.assert_allclose(got, G.gram_host(m, 256), rtol=1e-6)

@@ -1,0 +1,119 @@
+"""The port's main path end to end on the CPU: learn -> top-N -> eval, by
+the API and by the CLIs, against the synth goldens and against the JAX
+package's learn."""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import random_csr
+from slim_tpu.api import learn as jax_learn
+from slim_tpu.config import SlimConfig as JaxConfig
+from slim_tpu_torch import SlimConfig, determine_head_tail, evaluate_topn
+from slim_tpu_torch import get_topn, learn, read_model, write_model
+from slim_tpu_torch.cli import slim_learn, slim_predict
+from slim_tpu_torch.io.readers import read_matrix
+from slim_tpu_torch.solvers.cd import pick_impl
+from slim_tpu_torch.types import CSR
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+
+# tests/test_goldens.py
+SYNTH_LOSS, SYNTH_NNZ, SYNTH_HR, SYNTH_ARHR = 4730.0005, 10613, 0.230833, 0.135996
+
+
+def _port(m):
+    return CSR.from_arrays(m.nrows, m.ncols, m.indptr, m.indices, m.data)
+
+
+def test_learn_meets_synth_goldens():
+    trn = read_matrix(os.path.join(DATA, "synth-train.ijv"), "ijv") \
+        .infer_ncols()
+    tst = read_matrix(os.path.join(DATA, "synth-test.ijv"), "ijv") \
+        .infer_ncols()
+    model, stats = learn(trn, SlimConfig(l1r=1.0, l2r=1.0), device="cpu")
+    np.testing.assert_allclose(stats["loss"], SYNTH_LOSS, rtol=1e-4)
+    assert abs(stats["nnz"] - SYNTH_NNZ) <= SYNTH_NNZ * 0.01
+    ids, _, counts = get_topn(model, trn, nrcmds=10, device="cpu")
+    n = max(trn.ncols, tst.ncols, model.ncols)
+    res = evaluate_topn(ids, counts, tst, determine_head_tail(trn, n))
+    assert abs(res.hr - SYNTH_HR) < 0.015
+    assert abs(res.arhr - SYNTH_ARHR) < 0.010
+
+
+def test_cli_learn_then_predict_reproduces_goldens(tmp_path, capsys):
+    mdl = str(tmp_path / "synth.model")
+    assert slim_learn.main(["-ifmt=ijv", "-l1r=1.0", "-l2r=1.0",
+                            "-device=cpu",
+                            os.path.join(DATA, "synth-train.ijv"), mdl]) == 0
+    out = capsys.readouterr().out
+    nnz, loss = re.search(r"model nnz: (\d+)\s+loss: (\S+)", out).groups()
+    np.testing.assert_allclose(float(loss), SYNTH_LOSS, rtol=1e-4)
+    assert abs(int(nnz) - SYNTH_NNZ) <= SYNTH_NNZ * 0.01
+    assert slim_predict.main(["-ifmt=ijv", "-device=cpu", mdl,
+                              os.path.join(DATA, "synth-train.ijv"),
+                              os.path.join(DATA, "synth-test.ijv")]) == 0
+    out = capsys.readouterr().out
+    hr, arhr = re.search(r"hr: (\S+) hr_head: \S+ hr_tail: \S+ arhr: (\S+)",
+                         out).groups()
+    assert abs(float(hr) - SYNTH_HR) < 0.015
+    assert abs(float(arhr) - SYNTH_ARHR) < 0.010
+
+
+def test_cli_rejects_unported_modes(tmp_path):
+    trn = os.path.join(DATA, "synth-train.ijv")
+    with pytest.raises(NotImplementedError):
+        slim_learn.main(["-ifmt=ijv", "-dist=replicated", trn])
+    with pytest.raises(NotImplementedError):
+        slim_predict.main(["-ifmt=ijv", "m", trn, trn, trn])
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_learn_matches_jax_learn(implicit):
+    """Port vs JAX learn on one random matrix: loss rtol 1e-4, nnz ±1%
+    (the visit orders differ: torch.Generator is not jax.random)."""
+    rng = np.random.default_rng(5)
+    mat = random_csr(rng, 200, 90, density=0.12, implicit=implicit)
+    cfg = JaxConfig(l1r=0.5, l2r=1.0, block_size=32)
+    _, sj = jax_learn(mat, cfg)
+    _, st = learn(_port(mat), SlimConfig(l1r=0.5, l2r=1.0, block_size=32),
+                  device="cpu")
+    np.testing.assert_allclose(st["loss"], sj["loss"], rtol=1e-4)
+    assert abs(st["nnz"] - sj["nnz"]) <= 0.01 * sj["nnz"]
+
+
+@pytest.mark.parametrize("l1r", [1.0, 0.0])
+def test_compact_path_matches_full_width(l1r):
+    """Union-compacted blocks (narrow at l1r=1, snapped to full width at
+    l1r=0) solve the same problem as the full-width path."""
+    rng = np.random.default_rng(9)
+    mat = _port(random_csr(rng, 300, 700, density=0.01, implicit=True))
+    base = dict(l1r=l1r, l2r=1.0, block_size=64, shuffle=False)
+    m_full, s_full = learn(mat, SlimConfig(**base), device="cpu")
+    m_cmp, s_cmp = learn(mat, SlimConfig(compact_threshold=256, **base),
+                         device="cpu")
+    np.testing.assert_allclose(s_cmp["loss"], s_full["loss"], rtol=1e-4)
+    assert abs(m_cmp.nnz - m_full.nnz) <= 0.01 * m_full.nnz
+    np.testing.assert_allclose(m_cmp.to_dense(), m_full.to_dense(),
+                               atol=2e-3)
+
+
+def test_model_write_read_round_trip(tmp_path):
+    rng = np.random.default_rng(2)
+    mat = _port(random_csr(rng, 60, 40, density=0.2))
+    model, _ = learn(mat, SlimConfig(block_size=16), device="cpu")
+    path = str(tmp_path / "m.bin")
+    write_model(model, path)
+    assert read_model(path) == model
+
+
+def test_pick_impl_routes():
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
+    assert pick_impl(28672, cpu, 4096) == "plain"
+    assert pick_impl(384, gpu, 4096) == "sweep"
+    assert pick_impl(4096, gpu, 4096) == "sweep"
+    assert pick_impl(28672, gpu, 4096) == "sweep_large"
+    assert pick_impl(768, gpu, 256) == "sweep"      # not a GROUP multiple
