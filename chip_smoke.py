@@ -8,27 +8,39 @@ Phases (any failure exits non-zero, and no result line is printed):
   1. card name and power limit (nvidia-smi); build the CUDA kernels.
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: densify (npad 28672), row-major sweep (npad 384,
-     the synth path's, and 4096), coordinate-major sweep (B 1024,
-     npad 28672, one sweep), pack (1024, 28672).  Max error and both times
-     are printed.
+     the synth path's, and 4096), and at B 1024, npad 28672, one sweep, 80%
+     of the groups active: the coordinate-major sweep and the row-major
+     deferred-flush sweeps v3 and eager; pack (1024, 28672).  Max error and
+     both times are printed.
   3. the vendored synth set through learn / get_topn: the quality goldens.
-  4. the ML-20M synth workload at full scale: learn -> predict_topn for
-     every user; objective and model nnz against the JAX package's result.
-     With --profile DIR this phase runs under torch.profiler; device time
-     by kernel and the device idle share go to DIR/profile_ml20m.{txt,json}.
-  5. the kernels line.  Phases 3 and 4 are each driven with every launch
+  4. the ML-20M synth workload at full scale (generated once, shared by
+     phases 4-6): learn -> predict_topn for every user; objective and model
+     nnz against the JAX package's result.  With --profile DIR this phase
+     runs under torch.profiler; device time by kernel and the device idle
+     share go to DIR/profile_ml20m.{txt,json}.
+  5. model selection (mselect_pairs) over (2, 2) -> (1, 1) with
+     SLIM_PALLAS_V4=0, so every wide block takes the v3 sweep; the test set
+     is a held-out draw with the same popularity law.  The warm (1, 1)
+     point must reach phase 4's objective and nnz gates in fewer
+     column-iterations than phase 4's cold learn, and each point's retained
+     device pack must densify to its model.
+  6. one cold learn with SLIM_PALLAS_V3=0 SLIM_PALLAS_V4=0 (the eager
+     sweep), held to the same gates.
+  7. the kernels line.  Phases 3-6 are each driven with every launch
      counter set to 0 just before and read just after; each path must
-     launch its own kernels (PATH_KERNELS).  A kernel's ``launches`` is the
-     sum of its per-path counts (``launches_by_path``) in the unit of
-     ``launch_unit``; errors and times come from phase 2, at the shape the
-     path runs (``ms``/``plain_ms``) and at the other shapes checked
-     (``extra``).
-The last line is {"ok": true, "device": {...}}.
+     launch its own kernels (PATH_KERNELS) and no other wide-block sweep.
+     A kernel's ``launches`` is the sum of its per-path counts
+     (``launches_by_path``) in the unit of ``launch_unit``; errors and
+     times come from phase 2, at the shape the path runs
+     (``ms``/``plain_ms``) and at the other shapes checked (``extra``).
+Each phase's wall time is printed.  The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -45,14 +57,25 @@ SYNTH_LOSS, SYNTH_NNZ, SYNTH_HR, SYNTH_ARHR = 4730.0005, 10613, 0.230833, 0.1359
 # ML-20M synth (datagen.synth_ml20m(seed=0), l1r = l2r = 1): the JAX
 # package's objective and model nnz
 ML20M_OBJ, ML20M_NNZ = 9415007.30, 34464838
+ML20M_CFG = dict(optTol=1e-7, maxniters=10000, block_size=1024)
+MSELECT_POINTS = [(2.0, 2.0), (1.0, 1.0)]
 # the kernels each driven path must launch: the synth set (npad 384) solves
-# on the row-major sweep, every ML-20M block on the coordinate-major one
+# on the row-major sweep, every ML-20M block on the wide-block sweep its
+# variant picks (v4 by default, v3 and eager under the env switches)
 PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
-                "ml20m": ("densify", "cd_sweep_large", "pack")}
+                "ml20m": ("densify", "cd_sweep_large", "pack"),
+                "mselect": ("densify", "cd_sweep_v3", "pack"),
+                "eager": ("densify", "cd_sweep_eager", "pack")}
+WIDE_SWEEPS = ("cd_sweep_large", "cd_sweep_v3", "cd_sweep_eager")
 _SWEEP_UNIT = ("sweeps: one wrapper call enqueues a GS-chain and a "
                "propagation kernel per chunk and an end-of-sweep kernel")
+_PANEL_UNIT = ("sweeps: one wrapper call enqueues, per active group, a "
+               "tile load, four GS-chain and three in-group propagation "
+               "kernels, a flush per window with work, and an end-of-sweep "
+               "kernel")
 LAUNCH_UNIT = {"densify": "kernel launches", "pack": "kernel launches",
-               "cd_sweep": _SWEEP_UNIT, "cd_sweep_large": _SWEEP_UNIT}
+               "cd_sweep": _SWEEP_UNIT, "cd_sweep_large": _SWEEP_UNIT,
+               "cd_sweep_v3": _PANEL_UNIT, "cd_sweep_eager": _PANEL_UNIT}
 
 
 def card_line() -> str:
@@ -79,6 +102,29 @@ def cuda_ms(fn, reps):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Set environment variables for the block; restore them after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_gates(tag, stats):
+    """The ML-20M quality gates: objective and model nnz."""
+    check(abs(stats["loss"] - ML20M_OBJ) <= 1e-4 * ML20M_OBJ,
+          f"{tag} objective {stats['loss']}")
+    check(abs(stats["nnz"] - ML20M_NNZ) <= 0.01 * ML20M_NNZ,
+          f"{tag} model nnz {stats['nnz']}")
 
 
 def check_densify(dev, rng):
@@ -172,12 +218,11 @@ def check_sweep(dev, rng, n, B):
                 shape=f"B={B} npad={G.shape[0]}", tol="x 1e-4, q 1e-4 rel")
 
 
-def check_sweep_large(dev, rng):
+def check_sweep_large(ops):
     from slim_tpu_torch.ops.cd_sweep import cd_sweep_large, cd_sweep_large_plain
 
-    B = 1024
-    G, gj, act, x, q, live, diag2d, regs, perm, has = _sweep_inputs(
-        dev, rng, 27278, 20000, 2_000_000, B, large=True)
+    G, gj, act, x, q, live, diag2d, regs, perm, has = ops
+    B = gj.shape[0]
     args = (G, gj.T.contiguous(), act.T.contiguous(), x.T.contiguous(),
             q.T.contiguous(), live[None, :].contiguous(), diag2d,
             regs.T.contiguous(), perm, has)
@@ -191,6 +236,33 @@ def check_sweep_large(dev, rng):
                 max_abs_err=ex, q_rel_err=eq,
                 ms=cuda_ms(lambda: cd_sweep_large(*args), 3),
                 plain_ms=cuda_ms(lambda: cd_sweep_large_plain(*args), 1),
+                shape=f"B={B} npad={G.shape[0]}", tol="x 1e-4, q 1e-4 rel")
+
+
+def check_sweep_panel(ops, variant):
+    """The row-major deferred-flush sweep (v3: windows of K_FLUSH groups;
+    eager: one group) against its plain version on the operands of
+    check_sweep_large, whose random ``has`` leaves inactive groups inside
+    windows."""
+    from slim_tpu_torch.ops import cd_sweep as S
+
+    kern, plain, line = {
+        "v3": (S.cd_sweep_v3, S.cd_sweep_v3_plain, 601),
+        "eager": (S.cd_sweep_eager, S.cd_sweep_eager_plain, 313)}[variant]
+    G, gj, act, x, q, live, diag2d, regs, perm, has = ops
+    B = gj.shape[0]
+    args = (G, gj, act, x, q, live[:, None].contiguous(), diag2d,
+            regs.contiguous(), perm, has)
+    ex, eq, same_live = _cmp_sweep(kern(*args), plain(*args))
+    check(ex <= 1e-4 and eq <= 1e-4 and same_live,
+          f"{variant} sweep: x err {ex}, q rel err {eq}, "
+          f"live equal {same_live}")
+    return dict(name=kern.__name__, route="cuda",
+                source="slim_tpu_torch/csrc/sweep_panel.cu",
+                replaces=f"slim_tpu/ops/pallas_cd.py:{line}",
+                max_abs_err=ex, q_rel_err=eq,
+                ms=cuda_ms(lambda: kern(*args), 3),
+                plain_ms=cuda_ms(lambda: plain(*args), 1),
                 shape=f"B={B} npad={G.shape[0]}", tol="x 1e-4, q 1e-4 rel")
 
 
@@ -269,31 +341,25 @@ def write_profile(prof, wall_s, out_dir):
     print("profile:", json.dumps(summary), flush=True)
 
 
-def run_ml20m(dev, profile_dir=None):
-    from slim_tpu_torch.datagen import synth_ml20m
-
-    t0 = time.perf_counter()
-    trn = synth_ml20m(seed=0)
-    gen_s = time.perf_counter() - t0
+def run_ml20m(dev, trn, profile_dir=None):
     if profile_dir is not None:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            out = _learn_predict_ml20m(dev, trn, gen_s)
+            out = _learn_predict_ml20m(dev, trn)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
         write_profile(prof, wall_s, profile_dir)
         return out
-    return _learn_predict_ml20m(dev, trn, gen_s)
+    return _learn_predict_ml20m(dev, trn)
 
 
-def _learn_predict_ml20m(dev, trn, gen_s):
+def _learn_predict_ml20m(dev, trn):
     from slim_tpu_torch import SlimConfig, learn
     from slim_tpu_torch.predict import predict_topn
 
-    cfg = SlimConfig(l1r=1.0, l2r=1.0, optTol=1e-7, maxniters=10000,
-                     block_size=1024, dbglvl=2)
+    cfg = SlimConfig(l1r=1.0, l2r=1.0, dbglvl=2, **ML20M_CFG)
     model, stats = learn(trn, cfg, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -301,18 +367,67 @@ def _learn_predict_ml20m(dev, trn, gen_s):
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
     out = dict(nrows=trn.nrows, ncols=trn.ncols, nnz=trn.nnz,
-               datagen_s=gen_s, learn_s=stats["learn_s"],
-               phases=stats["phases"], sweeps=stats["sweeps"],
+               learn_s=stats["learn_s"], phases=stats["phases"],
+               sweeps=stats["sweeps"], niters=stats["niters"],
                objective=stats["loss"], model_nnz=stats["nnz"],
                predict_s=pred_s, predict_users_per_s=trn.nrows / pred_s,
                cols_per_s=trn.ncols / stats["learn_s"])
     print("ml20m:", json.dumps(out))
     check(ids.shape == (trn.nrows, 10) and np.all(counts >= 0)
           and np.all(ids < trn.ncols), "predict output malformed")
-    check(abs(stats["loss"] - ML20M_OBJ) <= 1e-4 * ML20M_OBJ,
-          f"ML-20M objective {stats['loss']}")
-    check(abs(stats["nnz"] - ML20M_NNZ) <= 0.01 * ML20M_NNZ,
-          f"ML-20M model nnz {stats['nnz']}")
+    check_gates("ML-20M", stats)
+    return out
+
+
+def run_mselect(dev, trn, cold_niters):
+    """Phase 5: the warm-started model-selection walk on the v3 sweep."""
+    from slim_tpu_torch import SlimConfig
+    from slim_tpu_torch.datagen import synth_implicit
+    from slim_tpu_torch.mselect import mselect_pairs
+    from slim_tpu_torch.predict import densify_model
+
+    tst = synth_implicit(trn.nrows, trn.ncols, trn.nrows, seed=1)
+    pack_err = []
+
+    def cb(rec, model, pack):
+        check(pack is not None, "mselect kept no device model")
+        ref = densify_model(model, npad=pack.npad, device=dev)
+        pack_err.append((pack.densify() - ref).abs().max().item())
+        pack.free_dense()
+
+    with env(SLIM_PALLAS_V4="0"):
+        res = mselect_pairs(trn, tst, SlimConfig(**ML20M_CFG), MSELECT_POINTS,
+                            point_callback=cb, device=dev)
+    points = [dict(l1r=r["l1r"], l2r=r["l2r"], learn_s=r["time"],
+                   sweeps=r["sweeps"], niters=r["niters"],
+                   predict_s=r["time_predict"], hr=r["hr"], arhr=r["arhr"],
+                   objective=r["loss"], model_nnz=r["nnz"], pack_err=e)
+              for r, e in zip(res["results"], pack_err)]
+    for pt in points:
+        print("mselect point:", json.dumps(pt))
+    warm = points[-1]
+    check_gates("warm (1, 1)", dict(loss=warm["objective"],
+                                    nnz=warm["model_nnz"]))
+    check(warm["niters"] < cold_niters,
+          f"warm (1, 1) took {warm['niters']} column-iterations, cold "
+          f"{cold_niters}")
+    check(len(pack_err) == len(MSELECT_POINTS)
+          and max(pack_err) <= 1e-6, f"pack densify errors {pack_err}")
+    return points
+
+
+def run_eager(dev, trn):
+    """Phase 6: one cold learn on the eager sweep."""
+    from slim_tpu_torch import SlimConfig, learn
+
+    with env(SLIM_PALLAS_V3="0", SLIM_PALLAS_V4="0"):
+        _, stats = learn(trn, SlimConfig(l1r=1.0, l2r=1.0, **ML20M_CFG),
+                         device=dev)
+    out = dict(learn_s=stats["learn_s"], phases=stats["phases"],
+               sweeps=stats["sweeps"], niters=stats["niters"],
+               objective=stats["loss"], model_nnz=stats["nnz"])
+    print("eager:", json.dumps(out))
+    check_gates("eager", stats)
     return out
 
 
@@ -328,43 +443,70 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import slim_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from slim_tpu_torch.datagen import synth_ml20m
     from slim_tpu_torch.ops import _build
-    from slim_tpu_torch.ops.cd_sweep import cd_sweep, cd_sweep_large
+    from slim_tpu_torch.ops import cd_sweep as S
     from slim_tpu_torch.ops.densify import densify
     from slim_tpu_torch.ops.gram import pin_f32
     from slim_tpu_torch.ops.pack import pack
 
     pin_f32()
     dev = torch.device("cuda", 0)
+    walls = {}
+    t_run = t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        t1 = time.perf_counter()
+        walls[name] = t1 - t0
+        print(f"phase {name}: {walls[name]:.2f}s", flush=True)
+        t0 = t1
+
     card = card_line()
     print("card:", card, flush=True)
-    t0 = time.perf_counter()
     _build.build()
     _build.lib()
-    print(f"build: {time.perf_counter() - t0:.2f}s", flush=True)
+    lap("build")
 
     rng = np.random.default_rng(0)
+    large = _sweep_inputs(dev, rng, 27278, 20000, 2_000_000, 1024, large=True)
     checks = [check_densify(dev, rng), check_sweep(dev, rng, 300, 512),
-              check_sweep(dev, rng, 4000, 512), check_sweep_large(dev, rng),
+              check_sweep(dev, rng, 4000, 512), check_sweep_large(large),
+              check_sweep_panel(large, "v3"), check_sweep_panel(large, "eager"),
               check_pack(dev, rng)]
+    del large
     for c in checks:
         print("check:", json.dumps(c), flush=True)
+    lap("kernels")
     if args.only == "kernels":
         return 0
 
-    wrappers = {"densify": densify, "cd_sweep": cd_sweep,
-                "cd_sweep_large": cd_sweep_large, "pack": pack}
+    trn = synth_ml20m(seed=0)
+    lap("datagen")
+    wrappers = {"densify": densify, "cd_sweep": S.cd_sweep,
+                "cd_sweep_large": S.cd_sweep_large,
+                "cd_sweep_v3": S.cd_sweep_v3,
+                "cd_sweep_eager": S.cd_sweep_eager, "pack": pack}
+    results = {}
+    drives = (("synth", lambda: run_synth(dev)),
+              ("ml20m", lambda: run_ml20m(dev, trn, args.profile)),
+              ("mselect", lambda: run_mselect(dev, trn,
+                                              results["ml20m"]["niters"])),
+              ("eager", lambda: run_eager(dev, trn)))
     by_path = {}
-    for path, drive in (("synth", lambda: run_synth(dev)),
-                        ("ml20m", lambda: run_ml20m(dev, args.profile))):
+    for path, drive in drives:
         for w in wrappers.values():
             w.launches = 0
-        drive()
+        results[path] = drive()
         counts = {k: w.launches for k, w in wrappers.items()}
         by_path[path] = counts
         print(f"launches {path}:", json.dumps(counts), flush=True)
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
         check(not missing, f"{path} path launched no {missing}: {counts}")
+        stray = [k for k in WIDE_SWEEPS
+                 if k not in PATH_KERNELS[path] and counts[k]]
+        check(not stray, f"{path} path launched {stray}: {counts}")
+        lap(path)
 
     by_name = {}
     for c in checks:       # a kernel's first check is at its path's shape
@@ -384,6 +526,7 @@ def main(argv=None):
             e.setdefault("extra", []).append(dict(
                 shape=c["shape"], max_abs_err=c["max_abs_err"], ms=c["ms"],
                 plain_ms=c["plain_ms"]))
+    print("wall:", json.dumps(dict(walls, total=time.perf_counter() - t_run)))
     print(card_line())
     print(json.dumps({"kernels": list(by_name.values())}))
     print(json.dumps({"ok": True, "device": {

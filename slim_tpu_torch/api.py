@@ -20,10 +20,17 @@ logger = logging.getLogger("slim_tpu_torch")
 __all__ = ["learn", "get_topn", "write_model", "read_model"]
 
 
-def learn(train: CSR, cfg: Optional[SlimConfig] = None, device=None):
+def learn(train: CSR, cfg: Optional[SlimConfig] = None,
+          imodel: Optional[CSR] = None, gram=None,
+          keep_device_model: bool = False, device=None):
     """Estimate a SLIM model with CD on ``device`` (default: the card when
     present).  Returns (model CSR, stats dict); stats adds setup_s,
-    learn_s and total_s to the solver's."""
+    learn_s and total_s to the solver's.
+
+    ``imodel`` warm-starts the solve; ``gram`` is a precomputed Gram in
+    item space on ``device``; ``keep_device_model=True`` returns the model
+    also as ``stats["W_dev"]``, a device pack that ``get_topn(...,
+    W_dev=...)`` densifies in place (no model upload)."""
     if isinstance(cfg, dict):
         cfg = SlimConfig.from_dict(cfg)
     cfg = cfg or SlimConfig()
@@ -36,7 +43,9 @@ def learn(train: CSR, cfg: Optional[SlimConfig] = None, device=None):
     tmat = train.infer_ncols()     # CreateTrainingMatrix, setup.c:109-135
     t_setup = time.perf_counter() - t_total
     t_learn = time.perf_counter()
-    model, stats = estimate_model_cd(tmat, cfg, device=device)
+    model, stats = estimate_model_cd(tmat, cfg, imodel=imodel, gram=gram,
+                                     keep_device_model=keep_device_model,
+                                     device=device)
     t_learn = time.perf_counter() - t_learn
     t_total = time.perf_counter() - t_total
     stats = dict(stats, setup_s=t_setup, learn_s=t_learn, total_s=t_total)

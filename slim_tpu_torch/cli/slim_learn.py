@@ -46,8 +46,6 @@ def main(argv=None):
     if args.dist != "none":
         raise NotImplementedError("--dist: distributed learn is not ported "
                                   "yet")
-    if args.ipmdlfile:
-        raise NotImplementedError("--ipmdlfile: warm start is not ported yet")
     setup_logging(args.dbglvl)
     banner()
 
@@ -65,16 +63,28 @@ def main(argv=None):
     if args.binarize:
         tmat = tmat.binarize()
 
+    mfmt = args.ifmt if args.ifmt != "csrnv" else "csr"   # as written below
+    imodel = None
+    if args.ipmdlfile:
+        # read in the format slim_learn writes models in (the JAX package
+        # reads csr whatever -ifmt says); an ijv file may omit trailing
+        # empty rows, so the model must fit the items, not match them
+        imodel = read_matrix(args.ipmdlfile, fmt=mfmt)
+        ncols = tmat.infer_ncols().ncols
+        if max(imodel.nrows, imodel.ncols) > ncols:
+            raise ValueError(f"warm-start model ({imodel.nrows} x "
+                             f"{imodel.ncols}) exceeds the train items "
+                             f"({ncols})")
+
     cfg = SlimConfig(
         l1r=args.l1r, l2r=args.l2r, optTol=args.optTol, maxniters=args.niters,
         nnbrs=args.nnbrs, simtype=args.simtype, algo=args.algo,
         ordered=int(args.ordered), dbglvl=args.dbglvl,
         nthreads=args.nthreads, block_size=args.blocksize)
-    model, stats = learn(tmat, cfg, device=args.device)
+    model, stats = learn(tmat, cfg, imodel=imodel, device=args.device)
 
     if args.mdlfile:
-        write_matrix(model, args.mdlfile, fmt=args.ifmt
-                     if args.ifmt != "csrnv" else "csr")
+        write_matrix(model, args.mdlfile, fmt=mfmt)
     print(f"\nmodel nnz: {model.nnz}  loss: {stats.get('loss', 0):.5e}  "
           f"learn: {stats['learn_s']:.2f}s")
     print("\nDone.")

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep_common.cuh"
+
 namespace {
 
 constexpr int CH = 128;          // coordinates per chunk
@@ -50,11 +52,6 @@ __device__ __forceinline__ long long at(int layout, int b, int i, int B,
                                         int npad) {
   return layout == 0 ? static_cast<long long>(b) * npad + i
                      : static_cast<long long>(i) * B + b;
-}
-
-__device__ __forceinline__ float reg(const float* regs, int layout, int k,
-                                     int b, int B) {
-  return layout == 0 ? regs[b * 5 + k] : regs[k * B + b];
 }
 
 __global__ void __launch_bounds__(GS_THREADS)
@@ -171,23 +168,6 @@ prop_kernel(int layout, const float* __restrict__ G,
       if (gn < N) C[static_cast<long long>(gm) * N + gn] += acc[i][j];
     }
   }
-}
-
-__global__ void sweep_end_kernel(int layout, const float* __restrict__ live_in,
-                                 const float* __restrict__ regs,
-                                 const float* __restrict__ dltx,
-                                 float* __restrict__ live_out,
-                                 float* __restrict__ nit, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float lv = live_in[b];
-  const float cap = reg(regs, layout, 2, b, B);
-  const float t0 = reg(regs, layout, 3, b, B);
-  const float tol = reg(regs, layout, 4, b, B);
-  const float keep = (dltx[b] < tol ? 0.0f : 1.0f) *
-                     ((t0 + 1.0f) < cap ? 1.0f : 0.0f);
-  nit[b] = lv;
-  live_out[b] = lv * keep;
 }
 
 }  // namespace

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "slim_pack": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "slim_cd_sweep": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _I, _I, _P, _P, _P, _P, _P],
+    "slim_cd_sweep_panel": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None

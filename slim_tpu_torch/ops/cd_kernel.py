@@ -91,23 +91,28 @@ def block_union_mask(G, j_ids, l1r, K):
 
 
 def _solve(impl, G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol, gen,
-           shuffle, x0_zero):
+           shuffle, x0_zero, variant):
+    """``impl`` "sweep_large" runs the wide-block sweep ``variant`` ("v4",
+    "v3" or "eager", see cd_sweep.pick_large_variant)."""
     if impl == "plain":
         return _cd_core(G, gj, diag, active, x0, caps, yty, l1v, l2v,
                         optTol, gen, shuffle)
-    from .cd_sweep import solve_core, solve_large_core
+    from .cd_sweep import solve_core, solve_large_core, solve_panel_core
 
+    args = (G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol, gen,
+            shuffle)
     if impl == "sweep":
-        return solve_core(G, gj, diag, active, x0, caps, yty, l1v, l2v,
-                          optTol, gen, shuffle)
+        return solve_core(*args)
+    if impl == "sweep_large" and variant == "v4":
+        return solve_large_core(*args, x0_zero=x0_zero)
     if impl == "sweep_large":
-        return solve_large_core(G, gj, diag, active, x0, caps, yty, l1v, l2v,
-                                optTol, gen, shuffle, x0_zero=x0_zero)
+        return solve_panel_core(*args, x0_zero=x0_zero, variant=variant)
     raise ValueError(f"unknown block-solve impl {impl!r}")
 
 
 def cd_solve_block_ids(G, j_ids, caps, x0, l1r, l2r, optTol, gen,
-                       shuffle=True, impl="plain", x0_zero=False):
+                       shuffle=True, impl="plain", x0_zero=False,
+                       variant="v4"):
     """Solve the B columns ``j_ids`` over the full coordinate space
     (padded entries point at the zero column npad-1 with cap 0)."""
     B = j_ids.shape[0]
@@ -117,11 +122,12 @@ def cd_solve_block_ids(G, j_ids, caps, x0, l1r, l2r, optTol, gen,
     active = screen(gj, j_ids, l1v)
     yty = diag[j_ids.long()]
     return _solve(impl, G, gj, diag, active, x0, caps, yty, l1v, l2v,
-                  optTol, gen, shuffle, x0_zero)
+                  optTol, gen, shuffle, x0_zero, variant)
 
 
 def cd_solve_block_compact(G, S, j_ids, caps, x0s, l1r, l2r, optTol, gen,
-                           shuffle=True, impl="plain", x0_zero=False):
+                           shuffle=True, impl="plain", x0_zero=False,
+                           variant="v4"):
     """Solve a block in the compact coordinate space S (exact: coordinates
     outside S are inactive for every column of the block)."""
     npad = G.shape[0]
@@ -135,7 +141,7 @@ def cd_solve_block_compact(G, S, j_ids, caps, x0s, l1r, l2r, optTol, gen,
     yty = diag_full[j_ids.long()]
     active = screen(gjs, j_ids, l1v, col_ids=S) & (S != npad - 1)[None, :]
     return _solve(impl, Gs, gjs, diag_s, active, x0s, caps, yty, l1v, l2v,
-                  optTol, gen, shuffle, x0_zero)
+                  optTol, gen, shuffle, x0_zero, variant)
 
 
 def block_stats(x, q, gj, yty, l1v, l2v):

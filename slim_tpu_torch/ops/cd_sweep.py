@@ -1,33 +1,45 @@
 """CD sweep kernels and the block-solve loops around them (port of
 slim_tpu/ops/pallas_cd.py).
 
-Two entry points share one CUDA engine (csrc/sweep.cu):
+Two CUDA engines carry four entry points:
 
-* :func:`cd_sweep` replaces ``_sweep_kernel`` / ``pallas_cd_sweeps``:
-  row-major (B, npad) operands, 128-wide chunks in ``perm`` order,
-  chunks with ``has == 0`` skipped.
-* :func:`cd_sweep_large` replaces ``_sweep_kernel_large_v4`` /
-  ``pallas_cd_sweep_large_v4``: coordinate-major (npad, B) operands,
-  ``group``-wide groups in ``perm`` order.  The TPU kernel deferred its q
-  flush over K_FLUSH-group windows through a bf16 (tiled) copy ``Gq`` and
-  flushed only live panels (``panarr``); those are VMEM/bandwidth devices
-  of the TPU.  Here every active chunk's deltas reach every q row before
-  the next chunk, in float32, so ``Gq`` and ``panarr`` are dropped and no
-  row a later read depends on is ever stale.
+* :func:`cd_sweep` (csrc/sweep.cu, layout 0) replaces ``_sweep_kernel`` /
+  ``pallas_cd_sweeps``: row-major (B, npad) operands, 128-wide chunks in
+  ``perm`` order, chunks with ``has == 0`` skipped.
+* :func:`cd_sweep_large` (csrc/sweep.cu, layout 1) replaces
+  ``_sweep_kernel_large_v4`` / ``pallas_cd_sweep_large_v4``:
+  coordinate-major (npad, B) operands, ``GROUP``-wide groups in ``perm``
+  order.  The TPU kernel deferred its q flush over K_FLUSH-group windows
+  through a bf16 (tiled) copy ``Gq`` and flushed only live panels
+  (``panarr``); those are VMEM/bandwidth devices of the TPU.  Here every
+  active chunk's deltas reach every q row before the next chunk, in
+  float32, so ``Gq`` and ``panarr`` are dropped and no row a later read
+  depends on is ever stale.
+* :func:`cd_sweep_v3` and :func:`cd_sweep_eager` (csrc/sweep_panel.cu)
+  replace ``_sweep_kernel_large_v3`` / ``pallas_cd_sweep_large_v3`` and
+  ``_sweep_kernel_large`` / ``pallas_cd_sweep_large``: row-major
+  operands, ``GROUP``-wide groups in ``perm`` order, each group's q tile
+  corrected on load by the pending deltas of its window and its deltas
+  flushed to all of q at the window's end.  The window is K_FLUSH groups
+  for v3 and one group for eager, in float32 both.
 
-One call = one sweep: for each active chunk a Gauss-Seidel chain over its
-128 coordinates (masked by active * live) and the propagation
-``q += dx · G[chunk, :]``; at the end a column dies when Σdx² < optTol or
+One call = one sweep: for each active group or chunk a Gauss-Seidel chain
+over its coordinates (masked by active * live) and the propagation of its
+deltas to q; at the end a column dies when Σdx² < optTol or
 ``t0 + 1 >= cap``.  Each entry has a plain PyTorch version used for CPU
 tensors and as the on-card reference.
 
-:func:`solve_core` / :func:`solve_large_core` are the counterparts of
-``pallas_solve_core`` and ``_solve_large_core_v4``: a Python loop of one
-launch per sweep that carries live / converged / niters exactly as the
-JAX while-loops do.
+:func:`solve_core` is the counterpart of ``pallas_solve_core``;
+:func:`solve_large_core` and :func:`solve_panel_core` of
+``pallas_solve_large_core`` with the v4 and the v3 / eager sweep: a
+Python loop of one launch per sweep that carries live / converged /
+niters exactly as the JAX while-loops do.  :func:`pick_large_variant`
+chooses among the three wide-block sweeps as the JAX package does.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -36,6 +48,20 @@ from .cd_kernel import CHUNK, block_stats
 
 GROUP = 512      # coordinates per group of the large sweep
 Q_REFRESH = 8    # sweeps between exact q = G x refreshes (large sweep)
+K_FLUSH = 4      # groups per deferred-flush window of the v3 sweep
+
+
+def _gs_chain(gjl, xl, ql, okf, d, gcc, l1, l2):
+    """Gauss-Seidel chain over one 128-wide chunk: returns dx (B, CHUNK);
+    ``ql`` (the chunk's q) is scratch, updated in place."""
+    dx = torch.zeros_like(xl)
+    for i in range(CHUNK):
+        num = gjl[:, i] - ql[:, i] + d[i] * xl[:, i]
+        cand = torch.clamp(num - l1, min=0.0) / (d[i] + l2)
+        delta = okf[:, i] * (cand - xl[:, i])
+        ql += delta[:, None] * gcc[i][None, :]
+        dx[:, i] = delta
+    return dx
 
 
 def _plain_chunks(G, gj, act, x, q, lv, diag, l1, l2, chunks):
@@ -46,17 +72,9 @@ def _plain_chunks(G, gj, act, x, q, lv, diag, l1, l2, chunks):
     for c in chunks:
         sl = slice(c * CHUNK, (c + 1) * CHUNK)
         okf = act[:, sl].to(torch.float32) * lv[:, None]
-        gcc = G[sl, sl]
-        gjl, xl, d = gj[:, sl], x[:, sl], diag[sl]
-        ql = q[:, sl].clone()
-        dx = torch.zeros((B, CHUNK), dtype=torch.float32, device=gj.device)
-        for i in range(CHUNK):
-            num = gjl[:, i] - ql[:, i] + d[i] * xl[:, i]
-            cand = torch.clamp(num - l1, min=0.0) / (d[i] + l2)
-            delta = okf[:, i] * (cand - xl[:, i])
-            ql += delta[:, None] * gcc[i][None, :]
-            dx[:, i] = delta
-        x[:, sl] = xl + dx
+        dx = _gs_chain(gj[:, sl], x[:, sl], q[:, sl].clone(), okf, diag[sl],
+                       G[sl, sl], l1, l2)
+        x[:, sl] += dx
         q += dx @ G[sl]
         dltx += (dx * dx).sum(dim=1)
     return dltx
@@ -97,6 +115,57 @@ def cd_sweep_large_plain(G, gjT, actT, xT, qT, live, diag2d, regsT, perm,
             lv[None, :].clone(), dltx[None, :])
 
 
+def _plain_panel(G, gj, act, x, q, live, diag2d, regs, perm, has, K):
+    """Row-major group sweep with the q flush deferred over K-group windows
+    (the contract of :func:`cd_sweep_v3` / :func:`cd_sweep_eager`)."""
+    x, q = x.clone(), q.clone()
+    B = gj.shape[0]
+    lv, d = live[:, 0], diag2d[0]
+    l1, l2, cap, t0, tol = regs.unbind(dim=1)
+    dX = torch.zeros((K, B, GROUP), dtype=torch.float32, device=gj.device)
+    dltx = torch.zeros(B, dtype=torch.float32, device=gj.device)
+    perm, has = perm.reshape(-1).tolist(), has.reshape(-1).tolist()
+
+    def rows(k):
+        return G[perm[k] * GROUP:(perm[k] + 1) * GROUP]
+
+    for pos, g in enumerate(perm):
+        slot = pos % K
+        win = [(k, pos - slot + k) for k in range(K) if has[pos - slot + k]]
+        gsl = slice(g * GROUP, (g + 1) * GROUP)
+        if has[pos]:
+            qt = q[:, gsl].clone()
+            for k, wp in win:
+                if k < slot:
+                    qt += dX[k] @ rows(wp)[:, gsl]
+            okf = act[:, gsl].to(torch.float32) * lv[:, None]
+            for o in range(0, GROUP, CHUNK):
+                a = g * GROUP + o
+                sl = slice(a, a + CHUNK)
+                dx = _gs_chain(gj[:, sl], x[:, sl], qt[:, o:o + CHUNK].clone(),
+                               okf[:, o:o + CHUNK], d[sl], G[sl, sl], l1, l2)
+                dX[slot, :, o:o + CHUNK] = dx
+                x[:, sl] += dx
+                qt[:, o + CHUNK:] += dx @ G[sl, a + CHUNK:(g + 1) * GROUP]
+            dltx += (dX[slot] * dX[slot]).sum(dim=1)
+        if slot == K - 1:
+            for k, wp in win:
+                q += dX[k] @ rows(wp)
+    lo = _end_of_sweep(lv, dltx, cap, t0, tol)
+    return x, q, lo[:, None], lv[:, None].clone(), dltx[:, None]
+
+
+def cd_sweep_v3_plain(G, gj, act, x, q, live, diag2d, regs, perm, has):
+    """Plain PyTorch version of :func:`cd_sweep_v3` (same contract)."""
+    return _plain_panel(G, gj, act, x, q, live, diag2d, regs, perm, has,
+                        K_FLUSH)
+
+
+def cd_sweep_eager_plain(G, gj, act, x, q, live, diag2d, regs, perm, has):
+    """Plain PyTorch version of :func:`cd_sweep_eager` (same contract)."""
+    return _plain_panel(G, gj, act, x, q, live, diag2d, regs, perm, has, 1)
+
+
 def _check(G, gj, act, x, q, live, diag2d, regs, perm, has, npad, B, group):
     f32 = (G, gj, x, q, live, diag2d, regs)
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in f32):
@@ -118,11 +187,16 @@ def _check(G, gj, act, x, q, live, diag2d, regs, perm, has, npad, B, group):
         raise ValueError("all sweep operands must be on one device")
 
 
+def _outputs(x, q, live):
+    """The kernels update x and q in place: fresh copies of both, and the
+    live', nit and (zeroed) dltx buffers."""
+    return (x.clone(), q.clone(), torch.empty_like(live),
+            torch.empty_like(live), torch.zeros_like(live))
+
+
 def _launch(layout, G, gj, act, x, q, live, diag2d, regs, perm, has, cpg,
             B, npad):
-    xo, qo = x.clone(), q.clone()
-    lo, nit = torch.empty_like(live), torch.empty_like(live)
-    dltx = torch.zeros_like(live)
+    xo, qo, lo, nit, dltx = _outputs(x, q, live)
     dxbuf = torch.empty(CHUNK * B, dtype=torch.float32, device=x.device)
     perm, has = perm.contiguous(), has.contiguous()
     _build.check(_build.lib().slim_cd_sweep(
@@ -174,6 +248,70 @@ def cd_sweep_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has):
 
 
 cd_sweep_large.launches = 0
+
+
+def _sweep_panel(wrapper, K, plain, G, gj, act, x, q, live, diag2d, regs,
+                 perm, has):
+    name = wrapper.__name__
+    B, npad = gj.shape
+    perm, has = perm.reshape(-1), has.reshape(-1)
+    _check(G, gj, act, x, q, live, diag2d, regs, perm, has, npad, B, GROUP)
+    if perm.numel() % K:
+        raise ValueError(f"{name}: {perm.numel()} groups do not fill "
+                         f"windows of {K}")
+    if gj.device.type == "cpu":
+        return plain(G, gj, act, x, q, live, diag2d, regs, perm, has)
+    if gj.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {gj.device}")
+    xo, qo, lo, nit, dltx = _outputs(x, q, live)
+    dX = torch.empty(K * GROUP * B, dtype=torch.float32, device=x.device)
+    qt = torch.empty(B * GROUP, dtype=torch.float32, device=x.device)
+    perm, has = perm.contiguous(), has.contiguous()
+    wrapper.launches += 1
+    _build.check(_build.lib().slim_cd_sweep_panel(
+        K, G.data_ptr(), gj.data_ptr(), act.data_ptr(), diag2d.data_ptr(),
+        xo.data_ptr(), qo.data_ptr(), live.data_ptr(), regs.data_ptr(),
+        perm.data_ptr(), has.data_ptr(), perm.numel(), B, npad,
+        dX.data_ptr(), qt.data_ptr(), lo.data_ptr(), nit.data_ptr(),
+        dltx.data_ptr(), _build.stream_ptr(x.device)), "slim_cd_sweep_panel")
+    return xo, qo, lo, nit, dltx
+
+
+def cd_sweep_v3(G, gj, act, x, q, live, diag2d, regs, perm, has):
+    """One row-major group sweep with the q flush deferred over windows of
+    K_FLUSH groups.  Operands as :func:`cd_sweep`; perm/has (npad // GROUP,)
+    int32 with (npad // GROUP) % K_FLUSH == 0.  Returns (x', q' = x'G,
+    live', nit = live at sweep start, dltx = Σdx²), the last three (B, 1)."""
+    return _sweep_panel(cd_sweep_v3, K_FLUSH, cd_sweep_v3_plain, G, gj, act,
+                        x, q, live, diag2d, regs, perm, has)
+
+
+cd_sweep_v3.launches = 0
+
+
+def cd_sweep_eager(G, gj, act, x, q, live, diag2d, regs, perm, has):
+    """One row-major group sweep with each group's deltas flushed to all of
+    q right after the group: :func:`cd_sweep_v3` with a window of one."""
+    return _sweep_panel(cd_sweep_eager, 1, cd_sweep_eager_plain, G, gj, act,
+                        x, q, live, diag2d, regs, perm, has)
+
+
+cd_sweep_eager.launches = 0
+
+
+def pick_large_variant(B: int, width: int) -> str:
+    """Sweep for a block wider than the compact threshold (counterpart of
+    ``pallas_pick_large_variant``), read from the environment at call time:
+    ``"v4"`` unless SLIM_PALLAS_V4=0, then ``"v3"`` unless SLIM_PALLAS_V3=0
+    or its windows do not tile the groups, else ``"eager"``.  The TPU's
+    VMEM budgets do not apply on the card, so no rule depends on ``B``; it
+    stays in the signature of the JAX function."""
+    if os.environ.get("SLIM_PALLAS_V4", "1") != "0":
+        return "v4"
+    if os.environ.get("SLIM_PALLAS_V3", "1") != "0" \
+            and (width // GROUP) % K_FLUSH == 0:
+        return "v3"
+    return "eager"
 
 
 def _start(active, x0, caps):
@@ -230,46 +368,83 @@ def solve_core(G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol, gen,
     return x, niters.to(torch.int32), conv, rnorm, obj
 
 
-def solve_large_core(G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol,
-                     gen, shuffle=True, x0_zero=False):
-    """Block solve on :func:`cd_sweep_large` (counterpart of
-    ``_solve_large_core_v4``): operands transposed once, q carried between
-    sweeps and refreshed exactly (``G xᵀ``, a torch matmul outside the
-    kernel) every Q_REFRESH sweeps, active groups clustered first in the
-    visit order, stats from the carried q.  Returns (x, niters, converged,
-    rnorm, obj)."""
+_GROUP_SWEEPS = {"v4": cd_sweep_large, "v3": cd_sweep_v3,
+                 "eager": cd_sweep_eager}
+
+
+def _solve_groups(variant, G, gj, diag, active, x0, caps, yty, l1v, l2v,
+                  optTol, gen, shuffle, x0_zero):
+    """Block solve on a group sweep: operands laid out once (coordinate-
+    major for v4, row-major otherwise), q carried between sweeps and
+    refreshed exactly (a torch matmul outside the kernel) every Q_REFRESH
+    sweeps, active groups clustered first in the visit order except for
+    eager, stats from the carried q."""
     B, npad = gj.shape
     dev = gj.device
     ngroups = npad // GROUP
-    actT = active.T.to(torch.int8).contiguous()
-    gjT = gj.T.contiguous()
+    sweep = _GROUP_SWEEPS[variant]
+    tr = variant == "v4"
+    lay = (lambda a: a.T.contiguous()) if tr else (lambda a: a.contiguous())
+    act = lay(active.to(torch.int8))
+    gjl = lay(gj)
     diag2d = diag.reshape(1, npad).to(torch.float32).contiguous()
     caps_f = caps.to(device=dev, dtype=torch.float32)
     x, tmax, live, conv = _start(active, x0, caps)
-    xT = x.T.contiguous()
-    live = live[None, :]
+    xl = lay(x)
+    live = live[None, :] if tr else live[:, None]
     ga = active.T.to(torch.float32).reshape(ngroups, GROUP, B).amax(dim=1)
-    qT = torch.zeros_like(xT) if x0_zero else G @ xT
+
+    def exact_q(xl):
+        return G @ xl if tr else xl @ G
+
+    ql = torch.zeros_like(xl) if x0_zero else exact_q(xl)
     niters = torch.zeros(B, dtype=torch.float32, device=dev)
     t = 0
     while t < tmax and bool((live > 0).any()):
+        lv = live.reshape(-1)
         perm = _perm(ngroups, gen, shuffle, dev).long()
-        group_any = (ga @ live[0]) > 0
-        inactive = (~group_any[perm]).to(torch.int32)
-        perm = perm[torch.sort(inactive, stable=True).indices]
+        group_any = (ga @ lv) > 0
+        if variant != "eager":
+            # cluster active groups first (stable) so that windows are
+            # either fully active or skipped
+            inactive = (~group_any[perm]).to(torch.int32)
+            perm = perm[torch.sort(inactive, stable=True).indices]
         has = group_any[perm].to(torch.int32)
-        regsT = torch.stack([l1v, l2v, caps_f, torch.full_like(l1v, float(t)),
-                             torch.full_like(l1v, float(optTol))], dim=0)
+        regs = torch.stack([l1v, l2v, caps_f, torch.full_like(l1v, float(t)),
+                            torch.full_like(l1v, float(optTol))],
+                           dim=0 if tr else 1)
         if t % Q_REFRESH == 0 and t > 0:
-            qT = G @ xT
-        xT, qT, liven, nit, dl = cd_sweep_large(
-            G, gjT, actT, xT, qT, live, diag2d, regsT.contiguous(),
-            perm.to(torch.int32), has)
-        died = (live[0] > 0) & (liven[0] == 0)
-        conv = conv | (died & (dl[0] < optTol))
-        niters += nit[0]
+            ql = exact_q(xl)
+        xl, ql, liven, nit, dl = sweep(G, gjl, act, xl, ql, live, diag2d,
+                                       regs.contiguous(),
+                                       perm.to(torch.int32), has)
+        ln = liven.reshape(-1)
+        died = (lv > 0) & (ln == 0)
+        conv = conv | (died & (dl.reshape(-1) < optTol))
+        niters += nit.reshape(-1)
         live = liven
         t += 1
-    x = xT.T
-    rnorm, obj = block_stats(x, qT.T, gj, yty, l1v, l2v)
+    x, q = (xl.T, ql.T) if tr else (xl, ql)
+    rnorm, obj = block_stats(x, q, gj, yty, l1v, l2v)
     return x.contiguous(), niters.to(torch.int32), conv, rnorm, obj
+
+
+def solve_large_core(G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol,
+                     gen, shuffle=True, x0_zero=False):
+    """Block solve on :func:`cd_sweep_large` (counterpart of
+    ``_solve_large_core_v4``).  Returns (x, niters, converged, rnorm,
+    obj)."""
+    return _solve_groups("v4", G, gj, diag, active, x0, caps, yty, l1v, l2v,
+                         optTol, gen, shuffle, x0_zero)
+
+
+def solve_panel_core(G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol,
+                     gen, shuffle=True, x0_zero=False, variant="v3"):
+    """Block solve on :func:`cd_sweep_v3` (``variant="v3"``) or
+    :func:`cd_sweep_eager` (``"eager"``): the counterpart of the non-v4
+    branch of ``pallas_solve_large_core``.  Returns (x, niters, converged,
+    rnorm, obj)."""
+    if variant not in ("v3", "eager"):
+        raise ValueError(f"unknown panel sweep variant {variant!r}")
+    return _solve_groups(variant, G, gj, diag, active, x0, caps, yty, l1v,
+                         l2v, optTol, gen, shuffle, x0_zero)

@@ -9,7 +9,8 @@ rows as runs), each user block's histories likewise; the scores are one
 float32 ``torch.matmul`` (TF32 off), then the history mask and
 ``torch.topk``.  Ids come back directly (no packed transfer).  Catalogues
 above SPARSE_PREDICT_THRESHOLD need the padded-sparse path, which is not
-ported yet.
+ported yet.  A model the solver kept on the device
+(:class:`DeviceModelPack`) densifies there, with no upload.
 """
 
 from __future__ import annotations
@@ -51,6 +52,54 @@ def densify_model(model: CSR, npad: int | None = None, device=None):
     return M.T.contiguous()
 
 
+class DeviceModelPack:
+    """A model kept on the device as the solver's flat harvest packs
+    (``keep_device_model``): ``vals`` / ``idx`` (device) in target-rank
+    run order, coordinate ids in RANK space (the solver's frequency
+    permutation), with the run table ``run_starts`` / ``run_lens`` and the
+    maps ``p_pad`` (rank -> item) and ``posmap_pad`` (item -> rank) on the
+    host.  Rank space lets the next warm-started learn over the same
+    matrix densify x0 straight from the pack.  :meth:`densify` builds the
+    dense (npad, npad) item-space W on the device, equal to
+    :func:`densify_model` of the assembled model."""
+
+    def __init__(self, vals, idx, run_starts, run_lens, p_pad, posmap_pad,
+                 n, npad):
+        self.vals, self.idx = vals, idx
+        self.run_starts, self.run_lens = run_starts, run_lens
+        self.p_pad, self.posmap_pad = p_pad, posmap_pad
+        self.n, self.npad = n, npad
+        self._W = None
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    def densify(self):
+        """Dense W (cached until :meth:`free_dense`): the flat rank ids map
+        to items once, the runs (one per target rank) densify through the
+        densify kernel into M[item, rank] with rank-padding coordinates
+        (>= n) dropped, and one column gather by ``posmap_pad`` puts the
+        targets in item order."""
+        if self._W is None:
+            dev = self.device
+            p_pad = torch.from_numpy(self.p_pad).to(dev)
+            idx_item = p_pad[self.idx.long()].to(torch.int32)
+            M = torch.zeros((self.npad, self.npad), dtype=torch.float32,
+                            device=dev)
+            densify_runs(idx_item, self.vals, self.run_starts, self.run_lens,
+                         self.npad, self.n, M)
+            del idx_item
+            self._W = M.index_select(
+                1, torch.from_numpy(self.posmap_pad).to(dev))
+        return self._W
+
+    def free_dense(self):
+        """Drop the cached dense W and keep the flat pack (model selection
+        does this after each evaluation)."""
+        self._W = None
+
+
 def _user_block(npad: int, user_block: int) -> int:
     """Users per scored block: up to 4x ``user_block``, bounded so one
     score block stays within SCORE_BLOCK_BYTES."""
@@ -64,7 +113,10 @@ def predict_topn(model: CSR, hist: CSR, nrcmds: int = 10,
 
     Returns (ids (nusers, nrcmds) int32 with -1 padding, scores (nusers,
     nrcmds) float32, counts (nusers,) int32).  ``W_dev``: a dense device
-    model from :func:`densify_model` to reuse across calls."""
+    model from :func:`densify_model` to reuse across calls, or a
+    :class:`DeviceModelPack`."""
+    if isinstance(W_dev, DeviceModelPack):
+        W_dev = W_dev.densify()
     dev = W_dev.device if W_dev is not None else resolve_device(device)
     pin_f32()
     n = max(model.nrows, model.ncols, hist.ncols)

@@ -10,6 +10,12 @@ width when the union covers more than COMPACT_FRAC of it.  Each
 solved block is harvested by count_over -> offsets -> the pack kernel ->
 host, and the model is assembled with scipy (estimate.c:570-593), keeping
 entries > 1e-7 (estimate.c:492-505).
+
+Warm starts (estimate.c:453-471) densify each block's x0 on the device
+from runs: the previous model's columns, or the retained pack of the
+previous learn over the same matrix (model selection).  With
+``keep_device_model`` the harvest packs stay on the device as a
+:class:`slim_tpu_torch.predict.DeviceModelPack`.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from ..config import (SlimConfig, SLIM_DBG_INFO, SLIM_DBG_PROGRESS,
 from ..ops.cd_kernel import (block_union_flags, cd_solve_block_compact,
                              cd_solve_block_ids, compact_union_ids,
                              count_over)
-from ..ops.cd_sweep import GROUP
+from ..ops.cd_sweep import GROUP, pick_large_variant
+from ..ops.densify import densify_runs
 from ..ops.gram import compute_gram, pin_f32
 from ..ops.pack import pack
 from ..types import CSR
@@ -63,7 +70,8 @@ def pick_impl(width: int, device: torch.device, compact_threshold: int) -> str:
     to split around: both sweep kernels take any B (the GS kernel holds
     64 columns per 96 KB block of shared memory, the propagation tiles
     128x128 outputs), so every block runs whole, on the row-major sweep up
-    to ``compact_threshold`` and on the coordinate-major one above it."""
+    to ``compact_threshold`` and above it on the wide-block sweep that
+    ``ops.cd_sweep.pick_large_variant`` chooses."""
     if device.type != "cuda":
         return "plain"
     if width <= compact_threshold or width % GROUP:
@@ -71,18 +79,84 @@ def pick_impl(width: int, device: torch.device, compact_threshold: int) -> str:
     return "sweep_large"
 
 
+def warm_runs(imodel: CSR, warm_pack, p_pad, posmap_pad, n: int, dev):
+    """The warm start's source as runs in rank space: (ids, values) on
+    ``dev``, run starts and lengths (host int64) indexed by target rank.
+    ``p_pad`` / ``posmap_pad`` map rank -> item and item -> rank.  The
+    retained pack of a learn over the same matrix is used as it is when
+    its npad, n and permutation match; else the columns of ``imodel``
+    (rows = rated item, cols = target item) are uploaded once, their item
+    ids mapped to ranks."""
+    if warm_pack is not None and warm_pack.npad == len(p_pad) \
+            and warm_pack.n == n \
+            and np.array_equal(warm_pack.posmap_pad, posmap_pad):
+        return (warm_pack.idx, warm_pack.vals, warm_pack.run_starts,
+                warm_pack.run_lens)
+    csc = imodel.with_ncols(max(imodel.ncols, n)).transpose()
+    p = p_pad[:n]
+    ids = torch.from_numpy(posmap_pad[csc.indices].astype(np.int32)).to(dev)
+    vals = torch.from_numpy(csc.values().astype(np.float32)).to(dev)
+    return ids, vals, csc.indptr[p], np.diff(csc.indptr)[p]
+
+
+def warm_x0(runs, r0: int, nJ: int, B: int, n: int, npad: int):
+    """(B, npad) float32 x0 of the block of target ranks [r0, r0 + nJ),
+    densified on the device through the densify kernel; rank-padding
+    coordinates (>= n) are dropped."""
+    ids, vals, rs, rl = runs
+    outT = torch.zeros((npad, B), dtype=torch.float32, device=ids.device)
+    densify_runs(ids, vals, rs[r0:r0 + nJ], rl[r0:r0 + nJ], npad, n,
+                 outT[:, :nJ])
+    return outT.T.contiguous()
+
+
+class _PackAccum:
+    """keep_device_model: the harvest's device packs, in block order and
+    with coordinates in rank space (compact ids mapped through S), so the
+    next warm-started learn over the same matrix densifies x0 straight from
+    them.  ``finalize`` builds the run table of the flat arrays."""
+
+    def __init__(self):
+        self.vals, self.ids, self.counts = [], [], []
+
+    def add(self, c, fv, fi, S):
+        self.counts.append(c)
+        self.vals.append(fv)
+        self.ids.append(S[fi.long()] if S is not None else fi)
+
+    def finalize(self, p_pad, posmap_pad, n, npad):
+        from ..predict import DeviceModelPack
+
+        counts = np.concatenate(self.counts)[:npad]
+        rl = np.zeros(npad, np.int64)
+        rl[:counts.size] = counts
+        rs = np.zeros(npad, np.int64)
+        np.cumsum(rl[:-1], out=rs[1:])
+        return DeviceModelPack(torch.cat(self.vals), torch.cat(self.ids), rs,
+                               rl, p_pad, posmap_pad, n, npad)
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
-def estimate_model_cd(train: CSR, cfg: SlimConfig, device=None):
+def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
+                      gram=None, keep_device_model=False, warm_pack=None,
+                      device=None):
     """Estimate the SLIM model with batched coordinate descent on
     ``device`` (default: the card when present).
 
     Returns ``(model, stats)``: model is a CSR with rows = rated item,
     cols = target item (estimate.c:570-593); stats carries loss/fit/nnz,
-    the summed per-column sweeps, and ``phases`` (seconds per phase)."""
+    the summed per-column sweeps, and ``phases`` (seconds per phase).
+
+    ``imodel`` warm-starts every column from that model (mtype slim);
+    ``warm_pack``, the retained pack of a learn over the same matrix,
+    replaces its upload.  ``gram``: a precomputed (npad, npad) Gram in
+    original item space on ``device`` (model selection shares one).
+    ``keep_device_model``: ``stats["W_dev"]`` is the model as a
+    :class:`slim_tpu_torch.predict.DeviceModelPack`."""
     dev = resolve_device(device)
     pin_f32()
     t_start = time.perf_counter()
@@ -105,17 +179,25 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, device=None):
                        "niters": 0, "sweeps": 0, "phases": {}}
 
     t = time.perf_counter()
-    g_raw = compute_gram(train, cfg.gram, pad_to=npad, device=dev)
+    g_raw = gram if gram is not None else \
+        compute_gram(train, cfg.gram, pad_to=npad, device=dev)
     t = lap("gram", t)
 
     nnz_col = train.col_nnz()
     col_caps = np.minimum(50 * nnz_col, cfg.maxniters).astype(np.int32)
     p = np.argsort(-nnz_col, kind="stable").astype(np.int32)  # rank -> item
-    p_pad = torch.from_numpy(np.concatenate(
-        [p, np.arange(n, npad, dtype=np.int32)]).astype(np.int64)).to(dev)
-    g = g_raw.index_select(0, p_pad).index_select(1, p_pad)
+    pad = np.arange(n, npad, dtype=np.int64)
+    p_pad = np.concatenate([p, pad])
+    posmap_pad = np.concatenate([np.empty(n, np.int64), pad])
+    posmap_pad[p] = np.arange(n)                              # item -> rank
+    p_dev = torch.from_numpy(p_pad).to(dev)
+    g = g_raw.index_select(0, p_dev).index_select(1, p_dev)
     del g_raw
     caps_p = col_caps[p]
+    use_warm = imodel is not None and cfg.mtype == "slim"
+    runs = warm_runs(imodel, warm_pack, p_pad, posmap_pad, n, dev) \
+        if use_warm else None
+    acc = _PackAccum() if keep_device_model else None
 
     use_compact = npad > int(cfg.compact_threshold)
     if use_compact:
@@ -153,19 +235,21 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, device=None):
         caps_d = torch.from_numpy(caps).to(dev)
         gen = torch.Generator().manual_seed(int(cfg.seed) + blk)
         args = (float(cfg.l1r), float(cfg.l2r), float(cfg.optTol), gen)
-        kw = dict(shuffle=cfg.shuffle, x0_zero=True)
-        if blk in union:
-            K, S, S_h = union[blk]
-            x0 = torch.zeros((B, K), dtype=torch.float32, device=dev)
-            out = cd_solve_block_compact(
-                g, S, J, caps_d, x0, *args,
-                impl=pick_impl(K, dev, cfg.compact_threshold), **kw)
+        K, S, S_h = union.get(blk, (npad, None, None))
+        if use_warm:
+            x0 = warm_x0(runs, r0, nJ, B, n, npad)
+            if S is not None:
+                x0 = x0.index_select(1, S.long())
+            t = lap("warm x0", t)
         else:
-            S_h = None
-            x0 = torch.zeros((B, npad), dtype=torch.float32, device=dev)
-            out = cd_solve_block_ids(
-                g, J, caps_d, x0, *args,
-                impl=pick_impl(npad, dev, cfg.compact_threshold), **kw)
+            x0 = torch.zeros((B, K), dtype=torch.float32, device=dev)
+        kw = dict(shuffle=cfg.shuffle, x0_zero=not use_warm,
+                  impl=pick_impl(K, dev, cfg.compact_threshold),
+                  variant=pick_large_variant(B, K))
+        if S is not None:
+            out = cd_solve_block_compact(g, S, J, caps_d, x0, *args, **kw)
+        else:
+            out = cd_solve_block_ids(g, J, caps_d, x0, *args, **kw)
         t = lap("solve", t)
 
         # harvest: counts -> offsets -> pack kernel -> host
@@ -177,6 +261,8 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, device=None):
         T = int(c.sum())
         fv, fi = pack(x, torch.from_numpy(off).to(dev), EPSILON,
                       nnz_bucket(max(T, 1), floor=128))
+        if acc is not None:
+            acc.add(c, fv[:T], fi[:T], S)
         va = fv[:T].cpu().numpy()
         ia = fi[:T].cpu().numpy().astype(np.int64)
         st = torch.stack([o[:nJ].to(torch.float64) for o in out[1:]]) \
@@ -215,6 +301,8 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, device=None):
         "sweeps": sweeps,
         "phases": dict(phases),
     }
+    if acc is not None:
+        stats["W_dev"] = acc.finalize(p_pad, posmap_pad, n, npad)
     if dbg(cfg, SLIM_DBG_TIME):
         logger.info("cd phases: %s (total %.2fs)", "  ".join(
             f"{k} {v:.2f}s" for k, v in phases.items()),

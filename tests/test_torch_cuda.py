@@ -71,22 +71,57 @@ def _solve_inputs(dev, rng, n, npad, B):
     return Gm, gj, diag, act, caps, diag[J.long()]
 
 
+SOLVES = {"sweep": (S.solve_core, S.cd_sweep),
+          "sweep_large": (S.solve_large_core, S.cd_sweep_large),
+          "v3": (lambda *a, **k: S.solve_panel_core(*a, variant="v3", **k),
+                 S.cd_sweep_v3),
+          "eager": (lambda *a, **k: S.solve_panel_core(*a, variant="eager",
+                                                       **k),
+                    S.cd_sweep_eager)}
+
+
 @pytest.mark.parametrize("impl,npad,B", [("sweep", 384, 50),
-                                         ("sweep_large", 1024, 70)])
+                                         ("sweep_large", 1024, 70),
+                                         ("v3", 2048, 70),
+                                         ("eager", 1024, 70)])
 def test_solve_on_card_matches_plain_oracle(dev, rng, impl, npad, B):
     Gm, gj, diag, act, caps, yty = _solve_inputs(dev, rng, 200, npad, B)
     l1, l2 = per_col(0.3, B, dev), per_col(0.5, B, dev)
     x0 = torch.zeros_like(gj)
-    fn = S.solve_core if impl == "sweep" else S.solve_large_core
-    launches = (S.cd_sweep if impl == "sweep" else S.cd_sweep_large).launches
+    fn, wrapper = SOLVES[impl]
+    launches = wrapper.launches
     got = fn(Gm, gj, diag, act, x0, caps, yty, l1, l2, 1e-10, None,
              shuffle=False)
-    assert (S.cd_sweep if impl == "sweep"
-            else S.cd_sweep_large).launches > launches
+    assert wrapper.launches > launches
     cpu = [t.cpu() for t in (Gm, gj, diag, act, x0, caps, yty)]
     ref = _cd_core(*cpu, 0.3, 0.5, 1e-10, None, shuffle=False)
     torch.testing.assert_close(got[0].cpu(), ref[0], rtol=0, atol=2e-4)
     torch.testing.assert_close(got[4].cpu(), ref[4], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("variant,npad,B", [("v3", 2048, 70),
+                                            ("eager", 1536, 33)])
+def test_panel_sweep_kernel_matches_plain(dev, rng, variant, npad, B):
+    """One sweep at a B off the kernels' tiles, inactive groups inside
+    windows: x atol 1e-4, q rel 1e-4, live equal."""
+    Gm, gj, diag, act, caps, yty = _solve_inputs(dev, rng, 600, npad, B)
+    ng = npad // S.GROUP
+    x = torch.where(act, torch.rand(act.shape, device=dev) * 0.05, 0.0)
+    live = (torch.rand(B, 1, device=dev) < 0.9).float()
+    regs = torch.tensor([0.3, 0.5, 50.0, 0.0, 1e-7], device=dev) \
+        .repeat(B, 1).contiguous()
+    perm = torch.randperm(ng, device=dev).to(torch.int32)
+    has = (torch.arange(ng, device=dev) % 3 != 1).to(torch.int32)
+    args = (Gm, gj, act.to(torch.int8), x, x @ Gm, live,
+            diag.reshape(1, npad).contiguous(), regs, perm, has)
+    kern = S.cd_sweep_v3 if variant == "v3" else S.cd_sweep_eager
+    plain = S.cd_sweep_v3_plain if variant == "v3" else S.cd_sweep_eager_plain
+    got, ref = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    qscale = max(1.0, ref[1].abs().max().item())
+    assert (got[1] - ref[1]).abs().max().item() <= 1e-4 * qscale
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
 
 
 def test_gram_on_card_matches_host(dev, rng):
