@@ -2,16 +2,25 @@
 
     python3 chip_smoke.py            # everything, as a release check runs it
     python3 chip_smoke.py --only kernels   # build + kernel-vs-plain checks
-    python3 chip_smoke.py --profile chiprun_out   # phase 4 under torch.profiler
+    python3 chip_smoke.py --profile chiprun_out   # one sweep and phase 4
+                                                  # under torch.profiler
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. card name and power limit (nvidia-smi); build the CUDA kernels.
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: densify (npad 28672), row-major sweep (npad 384,
-     the synth path's, and 4096), and at B 1024, npad 28672, one sweep, 80%
-     of the groups active: the coordinate-major sweep and the row-major
-     deferred-flush sweeps v3 and eager; pack (1024, 28672).  Max error and
-     both times are printed.
+     the synth path's, and 4096), the coordinate-major sweep at B 1024,
+     npad 28672, one sweep with every group active (phase 4's shape) and
+     with 80% active, the row-major deferred-flush sweeps v3 and eager at
+     80%, pack (1024, 28672).  Each line gives the max error, the kernel's
+     and the plain version's times, the bound (the larger of the bytes the
+     function must move over 3.35 TB/s and its operations over the peak of
+     their type) with what sets it, the kernel's share of it, and for
+     densify the time of the one PyTorch call that computes the same
+     function (``index_put_`` with accumulate).  With --profile DIR, one
+     coordinate-major sweep (all active, then 80%) runs under
+     torch.profiler; its device time by kernel goes to
+     DIR/profile_sweep.json.
   3. the vendored synth set through learn / get_topn: the quality goldens.
   4. the ML-20M synth workload at full scale (generated once, shared by
      phases 4-6): learn -> predict_topn for every user; objective and model
@@ -69,13 +78,52 @@ PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
 WIDE_SWEEPS = ("cd_sweep_large", "cd_sweep_v3", "cd_sweep_eager")
 _SWEEP_UNIT = ("sweeps: one wrapper call enqueues a GS-chain and a "
                "propagation kernel per chunk and an end-of-sweep kernel")
+_LARGE_UNIT = ("sweeps: one wrapper call enqueues, per group of the visit "
+               "order, a q-tile load and a group kernel (GS chain + in-group "
+               "tensor-core product), a tensor-core flush per window with "
+               "work, and an end-of-sweep kernel")
 _PANEL_UNIT = ("sweeps: one wrapper call enqueues, per active group, a "
                "tile load, four GS-chain and three in-group propagation "
                "kernels, a flush per window with work, and an end-of-sweep "
                "kernel")
 LAUNCH_UNIT = {"densify": "kernel launches", "pack": "kernel launches",
-               "cd_sweep": _SWEEP_UNIT, "cd_sweep_large": _SWEEP_UNIT,
+               "cd_sweep": _SWEEP_UNIT, "cd_sweep_large": _LARGE_UNIT,
                "cd_sweep_v3": _PANEL_UNIT, "cd_sweep_eager": _PANEL_UNIT}
+
+
+# H100 SXM peaks (NVIDIA's data sheet): memory rate, and the tensor-core
+# TF32 rate for float32 products (the sweeps' operands are float32)
+HBM_BPS = 3.35e12
+TF32_FLOPS = 495e12
+
+
+def bound(nbytes, flops=0.0, peak=TF32_FLOPS):
+    """Least time (ms) the card could take: the larger of the bytes over
+    the memory rate and the operations over ``peak``, and which one."""
+    tb, to = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def with_bound(line, nbytes, flops=0.0, library_ms=None):
+    ms, by = bound(nbytes, flops)
+    line.update(bound_ms=ms, bound_by=by, share=ms / line["ms"],
+                library_ms=library_ms)
+    return line
+
+
+def group_sweep_work(npad, B, has):
+    """(bytes, FLOP) of one group sweep (v4 / v3 / eager contract) for this
+    visit order's ``has``.  FLOP per active group: its deltas reach all
+    npad rows of q once (2 * B * npad * 512) and the GS chain (a 128-wide
+    triangle per sub-chunk).  The window-load corrections and in-group
+    products only bring forward contributions the flush also makes, so
+    they are not part of the work the outputs need.  Bytes: the active
+    groups' G rows once, gj/act/x/q in, x/q out."""
+    grp, ch = 512, 128
+    na = sum(int(h) for h in has)
+    flops = na * (2.0 * B * npad * grp + B * ch * ch * (grp // ch))
+    nbytes = 4.0 * grp * npad * na + B * npad * (13.0 + 8.0)
+    return nbytes, flops
 
 
 def card_line() -> str:
@@ -150,11 +198,23 @@ def check_densify(dev, rng):
         idsT, valsT, wmax, npad,
         torch.zeros((npad, R), dtype=torch.float32, device=dev)), 3)
     check(err == 0.0, f"densify differs from plain by {err}")
-    return dict(name="densify", route="cuda",
+    # the one library call: index_put_ with accumulate on flat indices of
+    # the entries that pass the mask (the masking is done beforehand)
+    ok = (idsT >= 0) & (idsT < npad)
+    rr = torch.arange(R, device=dev).expand(W, R)
+    flat = (idsT.long() * R + rr)[ok]
+    v = valsT[ok]
+    out = torch.zeros(npad * R, dtype=torch.float32, device=dev)
+    library_ms = cuda_ms(lambda: out.index_put_((flat,), v, accumulate=True),
+                         10)
+    line = dict(name="densify", route="cuda",
                 source="slim_tpu_torch/csrc/densify.cu",
                 replaces="slim_tpu/ops/pallas_gram.py:58",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 shape=f"W={W} R={R} npad={npad}", tol="exact")
+    # ids and values read once, the dense block written once
+    return with_bound(line, 8.0 * W * R + 4.0 * npad * R,
+                      library_ms=library_ms)
 
 
 def _sweep_inputs(dev, rng, n, nrows, nnz, B, large):
@@ -209,34 +269,86 @@ def check_sweep(dev, rng, n, B):
     check(ex <= 1e-4 and eq <= 1e-4 and same_live,
           f"sweep npad {G.shape[0]}: x err {ex}, q rel err {eq}, "
           f"live equal {same_live}")
-    return dict(name=f"cd_sweep@{G.shape[0]}", route="cuda",
+    npad, na = G.shape[0], int(has.sum())
+    line = dict(name=f"cd_sweep@{npad}", route="cuda",
                 source="slim_tpu_torch/csrc/sweep.cu",
                 replaces="slim_tpu/ops/pallas_cd.py:58",
                 max_abs_err=ex, q_rel_err=eq,
                 ms=cuda_ms(lambda: cd_sweep(*args), 5),
                 plain_ms=cuda_ms(lambda: cd_sweep_plain(*args), 1),
-                shape=f"B={B} npad={G.shape[0]}", tol="x 1e-4, q 1e-4 rel")
+                shape=f"B={B} npad={npad}", tol="x 1e-4, q 1e-4 rel")
+    # per active chunk: its G rows, the propagation and the GS triangle
+    return with_bound(line, 4.0 * 128 * npad * na + B * npad * 21.0,
+                      na * (2.0 * B * npad * 128 + B * 128 * 128.0))
 
 
-def check_sweep_large(ops):
-    from slim_tpu_torch.ops.cd_sweep import cd_sweep_large, cd_sweep_large_plain
-
+def _large_args(ops, all_active):
+    """cd_sweep_large's arguments (coordinate-major) from ``ops``: every
+    group active, or ``ops``'s own ``has``."""
     G, gj, act, x, q, live, diag2d, regs, perm, has = ops
-    B = gj.shape[0]
-    args = (G, gj.T.contiguous(), act.T.contiguous(), x.T.contiguous(),
+    if all_active:
+        has = torch.ones_like(has)
+    return (G, gj.T.contiguous(), act.T.contiguous(), x.T.contiguous(),
             q.T.contiguous(), live[None, :].contiguous(), diag2d,
             regs.T.contiguous(), perm, has)
+
+
+def check_sweep_large(ops, all_active):
+    """The coordinate-major sweep on transposed operands: every group
+    active (phase 4's shape: at B 1024 every group of every sweep has
+    work) or ``ops``'s own 80%."""
+    from slim_tpu_torch.ops.cd_sweep import cd_sweep_large, cd_sweep_large_plain
+
+    args = _large_args(ops, all_active)
+    npad, B = args[1].shape
+    has = args[-1]
     ex, eq, same_live = _cmp_sweep(cd_sweep_large(*args),
                                    cd_sweep_large_plain(*args))
     check(ex <= 1e-4 and eq <= 1e-4 and same_live,
           f"large sweep: x err {ex}, q rel err {eq}, live equal {same_live}")
-    return dict(name="cd_sweep_large", route="cuda",
-                source="slim_tpu_torch/csrc/sweep.cu",
+    line = dict(name="cd_sweep_large", route="cuda",
+                source="slim_tpu_torch/csrc/sweep_large.cu",
                 replaces="slim_tpu/ops/pallas_cd.py:920",
                 max_abs_err=ex, q_rel_err=eq,
                 ms=cuda_ms(lambda: cd_sweep_large(*args), 3),
                 plain_ms=cuda_ms(lambda: cd_sweep_large_plain(*args), 1),
-                shape=f"B={B} npad={G.shape[0]}", tol="x 1e-4, q 1e-4 rel")
+                shape=f"B={B} npad={npad} active="
+                      f"{int(has.sum())}/{has.numel()}",
+                tol="x 1e-4, q 1e-4 rel")
+    return with_bound(line, *group_sweep_work(npad, B, has.tolist()))
+
+
+def profile_sweep(ops, out_dir, reps=3):
+    """Device time by kernel of one coordinate-major sweep, all groups
+    active and at ``ops``'s own ``has``, under torch.profiler: calls and
+    milliseconds per sweep of each device kernel, to
+    ``out_dir/profile_sweep.json`` and to stdout."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from slim_tpu_torch.ops.cd_sweep import cd_sweep_large
+
+    out = []
+    for all_active in (True, False):
+        args = _large_args(ops, all_active)
+        ms = cuda_ms(lambda: cd_sweep_large(*args), reps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                cd_sweep_large(*args)
+            torch.cuda.synchronize()
+        rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        has = args[-1]
+        out.append(dict(
+            active=f"{int(has.sum())}/{has.numel()}", sweep_ms=ms,
+            kernels=[dict(name=e.key[:90], calls=e.count / reps,
+                          ms=e.self_device_time_total / 1e3 / reps)
+                     for e in rows[:8]]))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_sweep.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print("profile sweep:", json.dumps(out), flush=True)
 
 
 def check_sweep_panel(ops, variant):
@@ -257,13 +369,17 @@ def check_sweep_panel(ops, variant):
     check(ex <= 1e-4 and eq <= 1e-4 and same_live,
           f"{variant} sweep: x err {ex}, q rel err {eq}, "
           f"live equal {same_live}")
-    return dict(name=kern.__name__, route="cuda",
-                source="slim_tpu_torch/csrc/sweep_panel.cu",
-                replaces=f"slim_tpu/ops/pallas_cd.py:{line}",
-                max_abs_err=ex, q_rel_err=eq,
-                ms=cuda_ms(lambda: kern(*args), 3),
-                plain_ms=cuda_ms(lambda: plain(*args), 1),
-                shape=f"B={B} npad={G.shape[0]}", tol="x 1e-4, q 1e-4 rel")
+    npad = G.shape[0]
+    out = dict(name=kern.__name__, route="cuda",
+               source="slim_tpu_torch/csrc/sweep_panel.cu",
+               replaces=f"slim_tpu/ops/pallas_cd.py:{line}",
+               max_abs_err=ex, q_rel_err=eq,
+               ms=cuda_ms(lambda: kern(*args), 3),
+               plain_ms=cuda_ms(lambda: plain(*args), 1),
+               shape=f"B={B} npad={npad} active="
+                     f"{int(has.sum())}/{has.numel()}",
+               tol="x 1e-4, q 1e-4 rel")
+    return with_bound(out, *group_sweep_work(npad, B, has.tolist()))
 
 
 def check_pack(dev, rng):
@@ -284,11 +400,14 @@ def check_pack(dev, rng):
     v0, i0 = pack_plain(xd, od, 1e-7, Tpad)
     same = torch.equal(v1, v0) and torch.equal(i1, i0)
     check(same, "pack differs from plain")
-    return dict(name="pack", route="cuda", source="slim_tpu_torch/csrc/pack.cu",
+    line = dict(name="pack", route="cuda",
+                source="slim_tpu_torch/csrc/pack.cu",
                 replaces="slim_tpu/ops/pallas_pack.py:41", max_abs_err=0.0,
                 ms=cuda_ms(lambda: pack(xd, od, 1e-7, Tpad), 10),
                 plain_ms=cuda_ms(lambda: pack_plain(xd, od, 1e-7, Tpad), 3),
                 shape=f"B={B} K={K}", tol="bit-equal")
+    # x and the offsets read once, values and ids written once
+    return with_bound(line, 4.0 * B * K + 4.0 * B + 8.0 * Tpad)
 
 
 def run_synth(dev):
@@ -436,8 +555,9 @@ def main(argv=None):
     ap.add_argument("--only", choices=["kernels", "all"], default="all",
                     help="kernels: stop after the kernel checks")
     ap.add_argument("--profile", metavar="DIR",
-                    help="run the ML-20M phase under torch.profiler and "
-                         "write its per-kernel device times into DIR")
+                    help="run one sweep and the ML-20M phase under "
+                         "torch.profiler and write their per-kernel device "
+                         "times into DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -471,9 +591,13 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     large = _sweep_inputs(dev, rng, 27278, 20000, 2_000_000, 1024, large=True)
     checks = [check_densify(dev, rng), check_sweep(dev, rng, 300, 512),
-              check_sweep(dev, rng, 4000, 512), check_sweep_large(large),
+              check_sweep(dev, rng, 4000, 512),
+              check_sweep_large(large, all_active=True),
+              check_sweep_large(large, all_active=False),
               check_sweep_panel(large, "v3"), check_sweep_panel(large, "eager"),
               check_pack(dev, rng)]
+    if args.profile is not None:
+        profile_sweep(large, args.profile)
     del large
     for c in checks:
         print("check:", json.dumps(c), flush=True)
@@ -509,6 +633,8 @@ def main(argv=None):
         lap(path)
 
     by_name = {}
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "share", "library_ms", "shape")
     for c in checks:       # a kernel's first check is at its path's shape
         base = c["name"].split("@")[0]
         e = by_name.get(base)
@@ -519,13 +645,10 @@ def main(argv=None):
                 name=base, route=c["route"], source=c["source"],
                 replaces=c["replaces"], launches=sum(per_path.values()),
                 launches_by_path=per_path, launch_unit=LAUNCH_UNIT[base],
-                max_abs_err=c["max_abs_err"], ms=c["ms"],
-                plain_ms=c["plain_ms"], shape=c["shape"])
+                **{k: c[k] for k in timed})
         else:
             e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
-            e.setdefault("extra", []).append(dict(
-                shape=c["shape"], max_abs_err=c["max_abs_err"], ms=c["ms"],
-                plain_ms=c["plain_ms"]))
+            e.setdefault("extra", []).append({k: c[k] for k in timed})
     print("wall:", json.dumps(dict(walls, total=time.perf_counter() - t_run)))
     print(card_line())
     print(json.dumps({"kernels": list(by_name.values())}))

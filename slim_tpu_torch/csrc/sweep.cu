@@ -1,14 +1,10 @@
 // One cyclic coordinate-descent sweep for a block of B item columns against
-// the shared Gram matrix G (Hopper, sm_90a).
+// the shared Gram matrix G, row-major operands (Hopper, sm_90a).
 //
-// Replaces two TPU kernels with one engine and two entry layouts:
-//   layout 0: slim_tpu/ops/pallas_cd.py · _sweep_kernel / pallas_cd_sweeps
-//             (row-major: gj/x/q/act are (B, npad); regs (B, 5); 128-wide
-//             chunks visited in perm order, skipped where has == 0)
-//   layout 1: slim_tpu/ops/pallas_cd.py · _sweep_kernel_large_v4 /
-//             pallas_cd_sweep_large_v4 (coordinate-major: (npad, B); regs
-//             (5, B); `group`-wide groups visited in perm order, the
-//             group's 128-wide chunks in ascending order)
+// Replaces slim_tpu/ops/pallas_cd.py · _sweep_kernel / pallas_cd_sweeps:
+// gj/x/q/act are (B, npad), regs (B, 5); 128-wide chunks are visited in
+// perm order and skipped where has == 0.  (The coordinate-major wide-block
+// sweep is csrc/sweep_large.cu.)
 //
 // Per chunk of 128 coordinates at `base`, for every live column b:
 //   GS chain (in order i = 0..127, masked by act * live):
@@ -18,12 +14,10 @@
 // and at the sweep end a column dies when sum(dx^2) < optTol or t0+1 >= cap.
 //
 // What bounds it on the H100: the propagation, 2*npad*B*128 FLOP per
-// active chunk (1.7e12 FLOP per full sweep at B=1024, npad=28672), while the
-// GS chain is a latency-bound sequential recurrence per column.  The TPU
-// v4 kernel deferred and windowed the q flush (through a bf16 copy of G)
-// to save HBM bandwidth under VMEM limits; here the flush is eager and
-// exact: every active chunk's deltas reach every q row before the next
-// chunk starts, in f32, so no row that a later read depends on is stale.
+// active chunk, while the GS chain is a latency-bound sequential recurrence
+// per column.  At the synth path's npad 384 both are microseconds and the
+// launches dominate.  Every active chunk's deltas reach every q row before
+// the next chunk starts, in f32.
 //
 // Design: two launches per chunk on the caller's stream, looped on the host
 // inside slim_cd_sweep (one ctypes call per sweep), both reading perm/has
@@ -32,8 +26,8 @@
 //     a per-thread copy of the chunk's q (layout [j][thread]) sit in shared
 //     memory (96 KB); deltas go to dxbuf (128, B).
 //   prop_kernel: a 128x128-tile register-blocked f32 FMA product
-//     C(MxN) += P^T Q with P, Q 128-deep and k-major, whose G rows are
-//     shared by all B columns of the tile (no per-column re-read of G).
+//     q(B x npad) += dxbuf^T G[chunk rows, :], whose G rows are shared by
+//     all B columns of the tile (no per-column re-read of G).
 // A chunk with has == 0 costs two empty launches.
 
 #include <cuda_runtime.h>
@@ -48,22 +42,16 @@ constexpr int GS_THREADS = 64;   // columns per GS block
 constexpr int GS_SMEM = (CH * CH + CH * GS_THREADS) * 4;
 constexpr int BM = 128, BN = 128, BK = 8, PT = 256;
 
-__device__ __forceinline__ long long at(int layout, int b, int i, int B,
-                                        int npad) {
-  return layout == 0 ? static_cast<long long>(b) * npad + i
-                     : static_cast<long long>(i) * B + b;
-}
-
 __global__ void __launch_bounds__(GS_THREADS)
-gs_kernel(int layout, const float* __restrict__ G,
+gs_kernel(const float* __restrict__ G,
           const float* __restrict__ gj, const int8_t* __restrict__ act,
           const float* __restrict__ diag, float* __restrict__ x,
           const float* __restrict__ q, const float* __restrict__ live,
           const float* __restrict__ regs, const int32_t* __restrict__ perm,
-          const int32_t* __restrict__ has, int pos, int sub, int cpg, int B,
-          int npad, float* __restrict__ dxbuf, float* __restrict__ dltx) {
+          const int32_t* __restrict__ has, int pos, int B, int npad,
+          float* __restrict__ dxbuf, float* __restrict__ dltx) {
   if (has[pos] == 0) return;
-  const int base = (perm[pos] * cpg + sub) * CH;
+  const int base = perm[pos] * CH;
   extern __shared__ float smem[];
   float* gcc = smem;             // [i][j]
   float* ql = smem + CH * CH;    // [j][thread]
@@ -75,18 +63,18 @@ gs_kernel(int layout, const float* __restrict__ G,
   const bool valid = b < B;
   float l1 = 0.0f, l2 = 0.0f, lv = 0.0f;
   if (valid) {
-    l1 = reg(regs, layout, 0, b, B);
-    l2 = reg(regs, layout, 1, b, B);
+    l1 = reg(regs, 0, 0, b, B);
+    l2 = reg(regs, 0, 1, b, B);
     lv = live[b];
     for (int j = 0; j < CH; ++j) {
-      ql[j * GS_THREADS + tid] = q[at(layout, b, base + j, B, npad)];
+      ql[j * GS_THREADS + tid] = q[static_cast<long long>(b) * npad + base + j];
     }
   }
   __syncthreads();
   if (!valid) return;
   float dsum = 0.0f;
   for (int i = 0; i < CH; ++i) {
-    const long long a = at(layout, b, base + i, B, npad);
+    const long long a = static_cast<long long>(b) * npad + base + i;
     const float xi = x[a];
     const float ok = static_cast<float>(act[a]) * lv;
     const float di = diag[base + i];
@@ -106,21 +94,17 @@ gs_kernel(int layout, const float* __restrict__ G,
   dltx[b] += dsum;
 }
 
-// C (M x N, row stride N) += P^T Q, P = (CH x M) row stride ldp,
-// Q = (CH x N) row stride ldq.  Layout 0: P = dxbuf, Q = G rows, C = q.
-// Layout 1: P = G rows, Q = dxbuf, C = qT.
+// q (B x npad) += P^T Q with P = dxbuf (CH x B) and Q = G's chunk rows
+// (CH x npad).
 __global__ void __launch_bounds__(PT)
-prop_kernel(int layout, const float* __restrict__ G,
-            const float* __restrict__ dxbuf, float* __restrict__ C,
-            const int32_t* __restrict__ perm, const int32_t* __restrict__ has,
-            int pos, int sub, int cpg, int B, int npad) {
+prop_kernel(const float* __restrict__ G, const float* __restrict__ dxbuf,
+            float* __restrict__ C, const int32_t* __restrict__ perm,
+            const int32_t* __restrict__ has, int pos, int B, int npad) {
   if (has[pos] == 0) return;
-  const int base = (perm[pos] * cpg + sub) * CH;
-  const float* grows = G + static_cast<long long>(base) * npad;
-  const float* P = layout == 0 ? dxbuf : grows;
-  const float* Q = layout == 0 ? grows : dxbuf;
-  const int M = layout == 0 ? B : npad;
-  const int N = layout == 0 ? npad : B;
+  const int base = perm[pos] * CH;
+  const float* P = dxbuf;
+  const float* Q = G + static_cast<long long>(base) * npad;
+  const int M = B, N = npad;
   const int ldp = M, ldq = N;
 
   __shared__ float Ps[BK][BM];
@@ -173,14 +157,13 @@ prop_kernel(int layout, const float* __restrict__ G,
 }  // namespace
 
 // x and q are updated in place; dltx must arrive zeroed.  npos entries of
-// perm/has, each covering cpg consecutive chunks.
-extern "C" int slim_cd_sweep(int layout, const void* G, const void* gj,
-                             const void* act, const void* diag, void* x,
-                             void* q, const void* live_in, const void* regs,
+// perm/has, one per 128-wide chunk.
+extern "C" int slim_cd_sweep(const void* G, const void* gj, const void* act,
+                             const void* diag, void* x, void* q,
+                             const void* live_in, const void* regs,
                              const void* perm, const void* has, int npos,
-                             int cpg, int B, int npad, void* dxbuf,
-                             void* live_out, void* nit, void* dltx,
-                             void* stream) {
+                             int B, int npad, void* dxbuf, void* live_out,
+                             void* nit, void* dltx, void* stream) {
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -190,9 +173,7 @@ extern "C" int slim_cd_sweep(int layout, const void* G, const void* gj,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 gs_grid((B + GS_THREADS - 1) / GS_THREADS);
-  const int M = layout == 0 ? B : npad;
-  const int N = layout == 0 ? npad : B;
-  const dim3 p_grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 p_grid((npad + BN - 1) / BN, (B + BM - 1) / BM);
   const float* Gf = static_cast<const float*>(G);
   const int32_t* pm = static_cast<const int32_t*>(perm);
   const int32_t* hs = static_cast<const int32_t*>(has);
@@ -200,22 +181,18 @@ extern "C" int slim_cd_sweep(int layout, const void* G, const void* gj,
   float* qf = static_cast<float*>(q);
   float* dx = static_cast<float*>(dxbuf);
   for (int pos = 0; pos < npos; ++pos) {
-    for (int sub = 0; sub < cpg; ++sub) {
-      gs_kernel<<<gs_grid, GS_THREADS, GS_SMEM, s>>>(
-          layout, Gf, static_cast<const float*>(gj),
-          static_cast<const int8_t*>(act), static_cast<const float*>(diag),
-          xf, qf, static_cast<const float*>(live_in),
-          static_cast<const float*>(regs), pm, hs, pos, sub, cpg, B, npad, dx,
-          static_cast<float*>(dltx));
-      prop_kernel<<<p_grid, PT, 0, s>>>(layout, Gf, dx, qf, pm, hs, pos, sub,
-                                        cpg, B, npad);
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
+    gs_kernel<<<gs_grid, GS_THREADS, GS_SMEM, s>>>(
+        Gf, static_cast<const float*>(gj), static_cast<const int8_t*>(act),
+        static_cast<const float*>(diag), xf, qf,
+        static_cast<const float*>(live_in), static_cast<const float*>(regs),
+        pm, hs, pos, B, npad, dx, static_cast<float*>(dltx));
+    prop_kernel<<<p_grid, PT, 0, s>>>(Gf, dx, qf, pm, hs, pos, B, npad);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   sweep_end_kernel<<<(B + 255) / 256, 256, 0, s>>>(
-      layout, static_cast<const float*>(live_in),
-      static_cast<const float*>(regs), static_cast<const float*>(dltx),
-      static_cast<float*>(live_out), static_cast<float*>(nit), B);
+      0, static_cast<const float*>(live_in), static_cast<const float*>(regs),
+      static_cast<const float*>(dltx), static_cast<float*>(live_out),
+      static_cast<float*>(nit), B);
   return static_cast<int>(cudaGetLastError());
 }

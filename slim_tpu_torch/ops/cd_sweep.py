@@ -1,20 +1,20 @@
 """CD sweep kernels and the block-solve loops around them (port of
 slim_tpu/ops/pallas_cd.py).
 
-Two CUDA engines carry four entry points:
+Three CUDA engines carry four entry points:
 
-* :func:`cd_sweep` (csrc/sweep.cu, layout 0) replaces ``_sweep_kernel`` /
+* :func:`cd_sweep` (csrc/sweep.cu) replaces ``_sweep_kernel`` /
   ``pallas_cd_sweeps``: row-major (B, npad) operands, 128-wide chunks in
   ``perm`` order, chunks with ``has == 0`` skipped.
-* :func:`cd_sweep_large` (csrc/sweep.cu, layout 1) replaces
+* :func:`cd_sweep_large` (csrc/sweep_large.cu) replaces
   ``_sweep_kernel_large_v4`` / ``pallas_cd_sweep_large_v4``:
   coordinate-major (npad, B) operands, ``GROUP``-wide groups in ``perm``
-  order.  The TPU kernel deferred its q flush over K_FLUSH-group windows
-  through a bf16 (tiled) copy ``Gq`` and flushed only live panels
-  (``panarr``); those are VMEM/bandwidth devices of the TPU.  Here every
-  active chunk's deltas reach every q row before the next chunk, in
-  float32, so ``Gq`` and ``panarr`` are dropped and no row a later read
-  depends on is ever stale.
+  order, the q flush deferred over windows of K_FLUSH groups as in the TPU
+  kernel (each group's q tile corrected on load, one flush per window; the
+  last window may be partial).  Its products run on the tensor cores in
+  bf16x3: G and the deltas are each split into two bfloat16 halves
+  (:func:`split_bf16`, made once per G) and three products are summed in
+  float32.  The TPU kernel's live-panel list (``panarr``) is not kept.
 * :func:`cd_sweep_v3` and :func:`cd_sweep_eager` (csrc/sweep_panel.cu)
   replace ``_sweep_kernel_large_v3`` / ``pallas_cd_sweep_large_v3`` and
   ``_sweep_kernel_large`` / ``pallas_cd_sweep_large``: row-major
@@ -40,6 +40,7 @@ chooses among the three wide-block sweeps as the JAX package does.
 from __future__ import annotations
 
 import os
+import weakref
 
 import torch
 
@@ -48,7 +49,35 @@ from .cd_kernel import CHUNK, block_stats
 
 GROUP = 512      # coordinates per group of the large sweep
 Q_REFRESH = 8    # sweeps between exact q = G x refreshes (large sweep)
-K_FLUSH = 4      # groups per deferred-flush window of the v3 sweep
+K_FLUSH = 4      # groups per deferred-flush window (v4 and v3 sweeps)
+
+
+def split_bf16(G):
+    """G = hi + lo to about 2^-17 relative: hi = bf16(G), lo = bf16(G - hi),
+    the operands of the large sweep's bf16x3 tensor-core products."""
+    hi = G.to(torch.bfloat16)
+    return hi, (G - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+_SPLIT = {}
+
+
+def _split_of(G):
+    """:func:`split_bf16` of ``G``, made once and kept while G lives
+    unchanged (same object, same version counter): G is loop-invariant
+    across the sweeps of a solve and the blocks of a learn."""
+    hit = _SPLIT.get("G")
+    if hit is not None and hit[0]() is G and hit[1] == G._version:
+        return hit[2]
+
+    def drop(ref):
+        if _SPLIT.get("G", (None,))[0] is ref:
+            del _SPLIT["G"]
+
+    _SPLIT.clear()
+    pair = split_bf16(G)
+    _SPLIT["G"] = (weakref.ref(G, drop), G._version, pair)
+    return pair
 
 
 def _gs_chain(gjl, xl, ql, okf, d, gcc, l1, l2):
@@ -194,17 +223,38 @@ def _outputs(x, q, live):
             torch.empty_like(live), torch.zeros_like(live))
 
 
-def _launch(layout, G, gj, act, x, q, live, diag2d, regs, perm, has, cpg,
-            B, npad):
+def _launch(G, gj, act, x, q, live, diag2d, regs, perm, has, B, npad):
     xo, qo, lo, nit, dltx = _outputs(x, q, live)
     dxbuf = torch.empty(CHUNK * B, dtype=torch.float32, device=x.device)
     perm, has = perm.contiguous(), has.contiguous()
     _build.check(_build.lib().slim_cd_sweep(
-        layout, G.data_ptr(), gj.data_ptr(), act.data_ptr(),
-        diag2d.data_ptr(), xo.data_ptr(), qo.data_ptr(), live.data_ptr(),
-        regs.data_ptr(), perm.data_ptr(), has.data_ptr(), perm.numel(), cpg,
-        B, npad, dxbuf.data_ptr(), lo.data_ptr(), nit.data_ptr(),
-        dltx.data_ptr(), _build.stream_ptr(x.device)), "slim_cd_sweep")
+        G.data_ptr(), gj.data_ptr(), act.data_ptr(), diag2d.data_ptr(),
+        xo.data_ptr(), qo.data_ptr(), live.data_ptr(), regs.data_ptr(),
+        perm.data_ptr(), has.data_ptr(), perm.numel(), B, npad,
+        dxbuf.data_ptr(), lo.data_ptr(), nit.data_ptr(), dltx.data_ptr(),
+        _build.stream_ptr(x.device)), "slim_cd_sweep")
+    return xo, qo, lo, nit, dltx
+
+
+def _launch_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has, B,
+                  npad):
+    """One call of csrc/sweep_large.cu.  Scratch: the group's q tile qg
+    (GROUP, B) and the window's deltas as bf16 halves Dh / Dl (K_FLUSH, B,
+    GROUP); a slot is read only after its group has written it."""
+    xo, qo, lo, nit, dltx = _outputs(xT, qT, live)
+    gh, gl = _split_of(G)
+    dev = xT.device
+    qg = torch.empty(GROUP * B, dtype=torch.float32, device=dev)
+    dh = torch.empty(K_FLUSH * B * GROUP, dtype=torch.bfloat16, device=dev)
+    dl = torch.empty_like(dh)
+    perm, has = perm.contiguous(), has.contiguous()
+    _build.check(_build.lib().slim_cd_sweep_large(
+        G.data_ptr(), gh.data_ptr(), gl.data_ptr(), gjT.data_ptr(),
+        actT.data_ptr(), diag2d.data_ptr(), xo.data_ptr(), qo.data_ptr(),
+        live.data_ptr(), regsT.data_ptr(), perm.data_ptr(), has.data_ptr(),
+        perm.numel(), B, npad, qg.data_ptr(), dh.data_ptr(),
+        dl.data_ptr(), lo.data_ptr(), nit.data_ptr(), dltx.data_ptr(),
+        _build.stream_ptr(dev)), "slim_cd_sweep_large")
     return xo, qo, lo, nit, dltx
 
 
@@ -222,8 +272,7 @@ def cd_sweep(G, gj, act, x, q, live, diag2d, regs, perm, has):
     if gj.device.type != "cuda":
         raise ValueError(f"cd_sweep: unsupported device {gj.device}")
     cd_sweep.launches += 1
-    return _launch(0, G, gj, act, x, q, live, diag2d, regs, perm, has, 1,
-                   B, npad)
+    return _launch(G, gj, act, x, q, live, diag2d, regs, perm, has, B, npad)
 
 
 cd_sweep.launches = 0
@@ -233,7 +282,8 @@ def cd_sweep_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has):
     """One coordinate-major CD sweep.  gjT/xT/qT (npad, B) f32; actT
     (npad, B) int8; live (1, B); regsT (5, B); perm/has (npad // GROUP,)
     int32, groups visited in perm order, a group's chunks in ascending
-    order.  Returns (xT', qT', live', nit, dltx), the last three (1, B)."""
+    order; any npad that is a multiple of GROUP.  Returns (xT', qT' = G xT',
+    live', nit, dltx), the last three (1, B)."""
     npad, B = gjT.shape
     _check(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has, npad, B,
            GROUP)
@@ -243,8 +293,8 @@ def cd_sweep_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has):
     if gjT.device.type != "cuda":
         raise ValueError(f"cd_sweep_large: unsupported device {gjT.device}")
     cd_sweep_large.launches += 1
-    return _launch(1, G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has,
-                   GROUP // CHUNK, B, npad)
+    return _launch_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm,
+                         has, B, npad)
 
 
 cd_sweep_large.launches = 0

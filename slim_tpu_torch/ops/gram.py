@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..types import CSR
+from ..utils import resolve_device
 from .densify import RT, WCAP, densify_runs, pow2_width
 
 
@@ -70,16 +71,17 @@ def _contract(G, acc_i32, blkT):
         G += blkT @ blkT.t()
 
 
-def gram_device(mat: CSR, pad_to: int | None = None, device="cpu"):
+def gram_device(mat: CSR, pad_to: int | None = None, device=None):
     """Device Gram through the densify kernel.
 
     Rows are taken in nnz-sorted order (G is invariant to row order) in
     blocks densified by :func:`densify_runs`: each slab's entry width is the
     pow2 ceiling of its longest row, and rows wider than the densify window
     WCAP take several shifted kernel passes, so every entry goes through the
-    kernel.  Returns a (npad, npad) float32 tensor on ``device``."""
+    kernel.  Returns a (npad, npad) float32 tensor on ``device`` (default:
+    :func:`~slim_tpu_torch.utils.resolve_device`)."""
     pin_f32()
-    dev = torch.device(device)
+    dev = resolve_device(device)
     n = _round_up(max(pad_to if pad_to is not None else mat.ncols, 1), 128)
     G = torch.zeros((n, n), dtype=torch.float32, device=dev)
     if mat.nnz == 0:
@@ -117,13 +119,14 @@ def gram_device(mat: CSR, pad_to: int | None = None, device="cpu"):
 
 
 def compute_gram(mat: CSR, mode: str = "auto", pad_to: int | None = None,
-                 device="cpu"):
-    """G padded to ``pad_to`` as a float32 tensor on ``device``.
+                 device=None):
+    """G padded to ``pad_to`` as a float32 tensor on ``device`` (default:
+    the card when one is present, else the CPU, as ``resolve_device``).
 
     ``mode``: "host" (scipy), "device" (densify kernel + contraction on
     ``device``), or "auto" = device when ``device`` is a CUDA card, host
     otherwise (see the module docstring)."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     n = pad_to if pad_to is not None else mat.ncols
     if mode == "auto":
         mode = "device" if dev.type == "cuda" else "host"

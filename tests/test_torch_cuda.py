@@ -124,6 +124,34 @@ def test_panel_sweep_kernel_matches_plain(dev, rng, variant, npad, B):
     assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
 
 
+@pytest.mark.parametrize("npad,B,has", [(1024, 70, [0, 1]),
+                                        (1536, 33, [1, 0, 1]),
+                                        (4096, 1024, [0, 1, 1, 1, 0, 0, 0, 0])])
+def test_large_sweep_kernel_matches_plain(dev, rng, npad, B, has):
+    """One coordinate-major sweep: partial last windows (2 and 3 groups), a
+    window whose first slot has no work, an all-inactive window, columns
+    with live = 0: x atol 1e-4, q rel 1e-4, live and nit equal."""
+    Gm, gj, diag, act, caps, yty = _solve_inputs(dev, rng, 600, npad, B)
+    ng = npad // S.GROUP
+    x = torch.where(act, torch.rand(act.shape, device=dev) * 0.05, 0.0)
+    live = (torch.rand(1, B, device=dev) < 0.8).float()
+    regsT = torch.tensor([0.3, 0.5, 50.0, 0.0, 1e-7], device=dev)[:, None] \
+        .repeat(1, B).contiguous()
+    perm = torch.randperm(ng, device=dev).to(torch.int32)
+    xT = x.T.contiguous()
+    args = (Gm, gj.T.contiguous(), act.T.to(torch.int8).contiguous(), xT,
+            Gm @ xT, live, diag.reshape(1, npad).contiguous(), regsT, perm,
+            torch.tensor(has, dtype=torch.int32, device=dev))
+    launches = S.cd_sweep_large.launches
+    got, ref = S.cd_sweep_large(*args), S.cd_sweep_large_plain(*args)
+    torch.cuda.synchronize()
+    assert S.cd_sweep_large.launches == launches + 1
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    qscale = max(1.0, ref[1].abs().max().item())
+    assert (got[1] - ref[1]).abs().max().item() <= 1e-4 * qscale
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+
+
 def test_gram_on_card_matches_host(dev, rng):
     for implicit in (True, False):
         mat = random_csr(rng, 300, 150, density=0.1, implicit=implicit)

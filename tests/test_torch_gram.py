@@ -13,6 +13,7 @@ from slim_tpu_torch.ops import cd_kernel as tcd
 from slim_tpu_torch.ops import densify as tdensify
 from slim_tpu_torch.ops import gram as tgram
 from slim_tpu_torch.types import CSR
+from slim_tpu_torch.utils import resolve_device
 
 
 def _port(m):
@@ -25,7 +26,7 @@ def test_gram_device_matches_host(rng, implicit):
     binary data (int8 -> int32), rtol 1e-5 for valued data."""
     mat = random_csr(rng, 700, 100, density=0.12, implicit=implicit)
     want = jax_gram_host(mat, pad_to=128)
-    got = tgram.gram_device(_port(mat), pad_to=128).numpy()
+    got = tgram.gram_device(_port(mat), pad_to=128, device="cpu").numpy()
     if implicit:
         np.testing.assert_array_equal(got, want)
     else:
@@ -43,19 +44,30 @@ def test_gram_long_row_residual(rng, monkeypatch, implicit):
     if implicit:
         mat = mat.binarize()
     monkeypatch.setattr(tdensify, "WCAP", 32)
-    got = tgram.gram_device(mat, pad_to=128).numpy()
+    got = tgram.gram_device(mat, pad_to=128, device="cpu").numpy()
     np.testing.assert_array_equal(got, jax_gram_host(mat, pad_to=128))
 
 
 def test_compute_gram_modes(rng):
     mat = _port(random_csr(rng, 50, 30, density=0.2))
-    h = tgram.compute_gram(mat, "host", pad_to=128)
-    d = tgram.compute_gram(mat, "device", pad_to=128)
-    a = tgram.compute_gram(mat, "auto", pad_to=128)
+    h = tgram.compute_gram(mat, "host", pad_to=128, device="cpu")
+    d = tgram.compute_gram(mat, "device", pad_to=128, device="cpu")
+    a = tgram.compute_gram(mat, "auto", pad_to=128, device="cpu")
     np.testing.assert_allclose(d.numpy(), h.numpy(), rtol=1e-5)
     np.testing.assert_array_equal(a.numpy(), h.numpy())
     with pytest.raises(ValueError):
         tgram.compute_gram(mat, "nope")
+
+
+def test_gram_default_device_is_resolved(rng):
+    """With no device, both entries return G on ``resolve_device()`` (the
+    card when one is present), as the JAX package's device Gram lands on
+    the default accelerator."""
+    mat = _port(random_csr(rng, 50, 30, density=0.2))
+    want = resolve_device().type
+    for mode in ("host", "device", "auto"):
+        assert tgram.compute_gram(mat, mode, pad_to=128).device.type == want
+    assert tgram.gram_device(mat, pad_to=128).device.type == want
 
 
 @pytest.mark.parametrize("B", [32, 64, 96])

@@ -1,6 +1,8 @@
 """Coordinate-major CD sweep (port of pallas_cd_sweep_large_v4) and its
 solve loop, held against the v4 Pallas kernel in interpret mode at
-npad = GROUP * 2 * K_FLUSH (two flush windows)."""
+npad = GROUP * 2 * K_FLUSH (two flush windows); the card kernel's windowed
+bf16x3 schedule, restated in PyTorch, against the plain version, partial
+last windows included."""
 
 import numpy as np
 import pytest
@@ -16,29 +18,36 @@ from slim_tpu_torch.ops import cd_sweep as S
 from slim_tpu_torch.ops.cd_kernel import per_col
 
 NPAD = GROUP * 2 * K_FLUSH
+# the plain versions run many small ops: full thread pools under several
+# test workers slow them down many times
+torch.set_num_threads(1)
 
 
-def _problem(seed, B=32, l1r=0.3):
-    """Actives in group 0 and, by planted mass, in group 3 (as in
-    tests/test_pallas.py), so most groups are inactive."""
+def _problem(seed, B=32, l1r=0.3, npad=NPAD):
+    """Actives in group 0 and, by planted mass, in the last group (group 3
+    at the default npad, as in tests/test_pallas.py), so most groups are
+    inactive."""
     rng = np.random.default_rng(seed)
     n = 90
     mat = random_csr(rng, 120, n, density=0.25, seed=seed)
-    G = gram_host(mat, pad_to=NPAD)
-    G[GROUP * 3:GROUP * 3 + 8, :32] = 0.9
-    G[:32, GROUP * 3:GROUP * 3 + 8] = 0.9
+    G = gram_host(mat, pad_to=npad)
+    p = GROUP * min(3, npad // GROUP - 1)
+    G[p:p + 8, :32] = 0.9
+    G[:32, p:p + 8] = 0.9
     np.fill_diagonal(G, np.maximum(np.diagonal(G), 1.0))
     J = np.arange(B) % n
     gj = G[:, J].T.copy()
-    active = (gj > l1r) & (np.arange(NPAD)[None, :] != J[:, None])
+    active = (gj > l1r) & (np.arange(npad)[None, :] != J[:, None])
     return rng, G, J, gj, active
 
 
 @pytest.mark.parametrize("has_pattern", [[1, 0, 1, 1, 0, 1, 0, 1],
-                                         [1, 1, 0, 0, 0, 0, 0, 0]])
+                                         [1, 1, 0, 0, 0, 0, 0, 0],
+                                         [0, 1, 1, 0, 0, 0, 0, 1]])
 def test_one_sweep_matches_v4_interpret(has_pattern):
-    """Same perm/has (inactive groups mid-window), Gq = G in float32 so no
-    bf16 enters the TPU kernel, every panel listed: x atol 1e-4."""
+    """Same perm/has (inactive groups mid-window, a window whose first slot
+    has no work), Gq = G in float32 so no bf16 enters the TPU kernel, every
+    panel listed: x atol 1e-4."""
     rng, G, J, gj, active = _problem(11)
     B = gj.shape[0]
     ngroups = NPAD // GROUP
@@ -126,3 +135,144 @@ def test_large_and_row_major_plain_agree():
                    t(chas.astype(np.int32)))
     np.testing.assert_array_equal(a[0].numpy(), b[0].numpy().T)
     np.testing.assert_array_equal(a[1].numpy(), b[1].numpy().T)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _sweep_operands(seed, npad, B=32):
+    rng, G, J, gj, active = _problem(seed, B=B, npad=npad)
+    x = np.where(active, rng.random(active.shape) * 0.05, 0.0) \
+        .astype(np.float32)
+    q = (x @ G).astype(np.float32)
+    live = (rng.random(B) < 0.85).astype(np.float32)[None, :]
+    regsT = np.stack([np.full(B, 0.3), np.full(B, 0.5), np.full(B, 50.0),
+                      np.zeros(B), np.full(B, 1e-6)]).astype(np.float32)
+    diag2d = np.diagonal(G).reshape(1, npad).astype(np.float32).copy()
+    return (G, gj.T, active.T.astype(np.int8), x.T, q.T, live, diag2d,
+            regsT)
+
+
+def _windowed_bf16x3(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has):
+    """The schedule of csrc/sweep_large.cu in PyTorch: per position a q tile
+    corrected by the window's earlier slots with work, four GS sub-chunks
+    with the in-group product after each, and a flush at the window's last
+    slot or at the last position; every product in bf16x3 (hi . hi +
+    hi . lo + lo . hi, float32 sums)."""
+    def mm(a, b):
+        ah, al = S.split_bf16(a)
+        bh, bl = S.split_bf16(b)
+        f = lambda t: t.to(torch.float32)
+        return f(ah) @ f(bh) + f(ah) @ f(bl) + f(al) @ f(bh)
+
+    K, CH = K_FLUSH, 128
+    xT, qT = xT.clone(), qT.clone()
+    npad, B = gjT.shape
+    lv, d = live[0], diag2d[0]
+    l1, l2, cap, t0, tol = regsT.unbind(dim=0)
+    D = torch.zeros((K, GROUP, B))
+    dltx = torch.zeros(B)
+    perm, has = perm.tolist(), has.tolist()
+    for pos, g in enumerate(perm):
+        slot, g0 = pos % K, pos - pos % K
+        win = [(k, perm[g0 + k] * GROUP) for k in range(slot + 1)
+               if has[g0 + k]]
+        rows = slice(g * GROUP, (g + 1) * GROUP)
+        if has[pos]:
+            qg = qT[rows].clone()
+            for k, c in win:
+                if k < slot:
+                    qg += mm(G[rows, c:c + GROUP], D[k])
+            for o in range(0, GROUP, CH):
+                sl = slice(g * GROUP + o, g * GROUP + o + CH)
+                okf = actT[sl].T.to(torch.float32) * lv[:, None]
+                dx = S._gs_chain(gjT[sl].T, xT[sl].T, qg[o:o + CH].T.clone(),
+                                 okf, d[sl], G[sl, sl], l1, l2).T
+                D[slot, o:o + CH] = dx
+                xT[sl] += dx
+                dltx += (dx * dx).sum(dim=0)
+                if o + CH < GROUP:
+                    qg[o + CH:] += mm(G[g * GROUP + o + CH:(g + 1) * GROUP,
+                                        sl], dx)
+        if (slot == K - 1 or pos == len(perm) - 1) and win:
+            for k, c in win:
+                qT += mm(G[:, c:c + GROUP], D[k])
+    lo = S._end_of_sweep(lv, dltx, cap, t0, tol)
+    return xT, qT, lo[None, :], lv[None, :].clone(), dltx[None, :]
+
+
+# (npad in groups, perm, has): partial last windows (2 and 3 groups), a
+# window whose first slot has no work, an all-inactive window
+WINDOWS = [(2, [1, 0], [1, 1]),
+           (2, [0, 1], [0, 1]),
+           (3, [2, 0, 1], [0, 1, 1]),
+           (3, [1, 2, 0], [1, 0, 1]),
+           (6, [5, 0, 1, 2, 3, 4], [0, 1, 1, 1, 1, 0]),
+           (8, [0, 3, 5, 1, 2, 7, 4, 6], [0, 0, 0, 0, 1, 1, 0, 1])]
+
+
+@pytest.mark.parametrize("ngroups,perm,has", WINDOWS)
+def test_plain_matches_row_major_expansion(ngroups, perm, has):
+    """At every window shape the coordinate-major plain version is the
+    row-major sweep on the chunk order it expands to (bit-equal)."""
+    npad = ngroups * GROUP
+    G, gjT, actT, xT, qT, live, diag2d, regsT = _sweep_operands(17, npad)
+    cpg = GROUP // 128
+    gperm, ghas = np.array(perm, np.int32), np.array(has, np.int32)
+    cperm = np.repeat(gperm * cpg, cpg) + np.tile(np.arange(cpg), ngroups)
+    a = S.cd_sweep_large(*map(_t, (G, gjT, actT, xT, qT, live, diag2d,
+                                   regsT, gperm, ghas)))
+    b = S.cd_sweep(*map(_t, (G, gjT.T, actT.T, xT.T, qT.T, live.T, diag2d,
+                             regsT.T, cperm.astype(np.int32),
+                             np.repeat(ghas, cpg))))
+    for i in range(5):
+        np.testing.assert_array_equal(a[i].numpy(), b[i].numpy().T)
+
+
+@pytest.mark.parametrize("ngroups,perm,has", WINDOWS)
+def test_windowed_bf16x3_schedule_matches_plain(ngroups, perm, has):
+    """The card kernel's schedule (window loads, in-group products, flushes
+    of partial windows) with bf16x3 products agrees with the plain version
+    within the card check's tolerances: x 1e-4 abs, q 1e-4 of max |q|,
+    live and nit equal."""
+    npad = ngroups * GROUP
+    ops = [_t(a) for a in _sweep_operands(23, npad)]
+    p, h = _t(np.array(perm, np.int32)), _t(np.array(has, np.int32))
+    got = _windowed_bf16x3(*ops, p, h)
+    ref = S.cd_sweep_large_plain(*ops, p, h)
+    assert (got[0] - ref[0]).abs().max().item() <= 1e-4
+    qscale = max(1.0, ref[1].abs().max().item())
+    assert (got[1] - ref[1]).abs().max().item() <= 1e-4 * qscale
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    torch.testing.assert_close(got[4], ref[4], rtol=1e-3, atol=1e-9)
+    # the flushed q is G x' (the invariant the next sweep starts from)
+    assert (got[1] - ops[0] @ got[0]).abs().max().item() <= 1e-4 * qscale
+
+
+def test_split_bf16():
+    """hi = bf16(G) and hi + lo within 2^-16 of G; integer counts below
+    2^16 (a binary Gram's entries) split exactly."""
+    rng = np.random.default_rng(3)
+    G = torch.from_numpy(np.concatenate([
+        rng.standard_normal(4096) * 1e3,
+        rng.integers(0, 1 << 16, 4096).astype(np.float64)]).astype(np.float32))
+    hi, lo = S.split_bf16(G)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, G.to(torch.bfloat16))
+    back = hi.to(torch.float32) + lo.to(torch.float32)
+    assert ((back - G).abs() <= G.abs() * 2.0 ** -16).all()
+    assert torch.equal(back[4096:], G[4096:])
+
+
+def test_split_made_once_per_g():
+    """The wrapper's split is kept for the same unchanged G and remade when
+    G changes in place or another G comes."""
+    G = torch.rand(64, 64)
+    a = S._split_of(G)
+    assert S._split_of(G) is a
+    G.mul_(2.0)
+    b = S._split_of(G)
+    assert b is not a and torch.equal(b[0], G.to(torch.bfloat16))
+    H = G.clone()
+    assert S._split_of(H) is not b
