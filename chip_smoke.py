@@ -11,14 +11,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      main path's shapes: densify (npad 28672), row-major sweep (npad 384,
      the synth path's, and 4096), the coordinate-major sweep at B 1024,
      npad 28672, one sweep with every group active (phase 4's shape) and
-     with 80% active, the row-major deferred-flush sweeps v3 and eager at
-     80%, pack (1024, 28672).  Each line gives the max error, the kernel's
-     and the plain version's times, the bound (the larger of the bytes the
-     function must move over 3.35 TB/s and its operations over the peak of
-     their type) with what sets it, the kernel's share of it, and for
-     densify the time of the one PyTorch call that computes the same
-     function (``index_put_`` with accumulate).  With --profile DIR, one
-     coordinate-major sweep (all active, then 80%) runs under
+     with 38 of 56 groups active, the row-major deferred-flush sweeps v3
+     and eager at the same two, pack (1024, 28672).  Each line gives the
+     max error, the kernel's and the plain version's times, the bound (the
+     larger of the bytes the function must move over 3.35 TB/s and its
+     operations over the peak of their type) with what sets it, the
+     kernel's share of it, and for densify the time of the one PyTorch
+     call that computes the same function (``index_put_`` with
+     accumulate).  With --profile DIR, one sweep of each wide-block
+     variant (v4, v3, eager; all active, then 38/56) runs under
      torch.profiler; its device time by kernel goes to
      DIR/profile_sweep.json.
   3. the vendored synth set through learn / get_topn: the quality goldens.
@@ -82,10 +83,11 @@ _LARGE_UNIT = ("sweeps: one wrapper call enqueues, per group of the visit "
                "order, a q-tile load and a group kernel (GS chain + in-group "
                "tensor-core product), a tensor-core flush per window with "
                "work, and an end-of-sweep kernel")
-_PANEL_UNIT = ("sweeps: one wrapper call enqueues, per active group, a "
-               "tile load, four GS-chain and three in-group propagation "
-               "kernels, a flush per window with work, and an end-of-sweep "
-               "kernel")
+_PANEL_UNIT = ("sweeps: one wrapper call enqueues, per group of the visit "
+               "order, a group kernel (GS chain + in-group tensor-core "
+               "product) and, at a v3 window's slots after the first, a "
+               "q-tile load; a tensor-core flush per window with work, and "
+               "an end-of-sweep kernel")
 LAUNCH_UNIT = {"densify": "kernel launches", "pack": "kernel launches",
                "cd_sweep": _SWEEP_UNIT, "cd_sweep_large": _LARGE_UNIT,
                "cd_sweep_v3": _PANEL_UNIT, "cd_sweep_eager": _PANEL_UNIT}
@@ -296,7 +298,7 @@ def _large_args(ops, all_active):
 def check_sweep_large(ops, all_active):
     """The coordinate-major sweep on transposed operands: every group
     active (phase 4's shape: at B 1024 every group of every sweep has
-    work) or ``ops``'s own 80%."""
+    work) or ``ops``'s own 38/56."""
     from slim_tpu_torch.ops.cd_sweep import cd_sweep_large, cd_sweep_large_plain
 
     args = _large_args(ops, all_active)
@@ -318,53 +320,66 @@ def check_sweep_large(ops, all_active):
     return with_bound(line, *group_sweep_work(npad, B, has.tolist()))
 
 
+def _panel_args(ops, all_active):
+    """cd_sweep_v3 / cd_sweep_eager's arguments (row-major) from ``ops``:
+    every group active, or ``ops``'s own ``has``."""
+    G, gj, act, x, q, live, diag2d, regs, perm, has = ops
+    if all_active:
+        has = torch.ones_like(has)
+    return (G, gj, act, x, q, live[:, None].contiguous(), diag2d,
+            regs.contiguous(), perm, has)
+
+
 def profile_sweep(ops, out_dir, reps=3):
-    """Device time by kernel of one coordinate-major sweep, all groups
-    active and at ``ops``'s own ``has``, under torch.profiler: calls and
-    milliseconds per sweep of each device kernel, to
-    ``out_dir/profile_sweep.json`` and to stdout."""
+    """Device time by kernel of one sweep of each wide-block variant (v4,
+    v3, eager), all groups active and at ``ops``'s own ``has``, under
+    torch.profiler: calls and milliseconds per sweep of each device
+    kernel, to ``out_dir/profile_sweep.json`` and to stdout."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from slim_tpu_torch.ops.cd_sweep import cd_sweep_large
+    from slim_tpu_torch.ops import cd_sweep as S
 
     out = []
-    for all_active in (True, False):
-        args = _large_args(ops, all_active)
-        ms = cuda_ms(lambda: cd_sweep_large(*args), reps)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                cd_sweep_large(*args)
-            torch.cuda.synchronize()
-        rows = sorted((e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA),
-                      key=lambda e: -e.self_device_time_total)
-        has = args[-1]
-        out.append(dict(
-            active=f"{int(has.sum())}/{has.numel()}", sweep_ms=ms,
-            kernels=[dict(name=e.key[:90], calls=e.count / reps,
-                          ms=e.self_device_time_total / 1e3 / reps)
-                     for e in rows[:8]]))
+    for variant, fn, make in (("v4", S.cd_sweep_large, _large_args),
+                              ("v3", S.cd_sweep_v3, _panel_args),
+                              ("eager", S.cd_sweep_eager, _panel_args)):
+        for all_active in (True, False):
+            args = make(ops, all_active)
+            ms = cuda_ms(lambda: fn(*args), reps)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn(*args)
+                torch.cuda.synchronize()
+            rows = sorted((e for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA),
+                          key=lambda e: -e.self_device_time_total)
+            has = args[-1]
+            out.append(dict(
+                variant=variant, active=f"{int(has.sum())}/{has.numel()}",
+                sweep_ms=ms,
+                kernels=[dict(name=e.key[:90], calls=e.count / reps,
+                              ms=e.self_device_time_total / 1e3 / reps)
+                         for e in rows[:8]]))
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile_sweep.json"), "w") as f:
         json.dump(out, f, indent=1)
     print("profile sweep:", json.dumps(out), flush=True)
 
 
-def check_sweep_panel(ops, variant):
+def check_sweep_panel(ops, variant, all_active):
     """The row-major deferred-flush sweep (v3: windows of K_FLUSH groups;
     eager: one group) against its plain version on the operands of
-    check_sweep_large, whose random ``has`` leaves inactive groups inside
-    windows."""
+    check_sweep_large: every group active, or their random ``has``, which
+    leaves inactive groups inside windows."""
     from slim_tpu_torch.ops import cd_sweep as S
 
     kern, plain, line = {
         "v3": (S.cd_sweep_v3, S.cd_sweep_v3_plain, 601),
         "eager": (S.cd_sweep_eager, S.cd_sweep_eager_plain, 313)}[variant]
-    G, gj, act, x, q, live, diag2d, regs, perm, has = ops
+    args = _panel_args(ops, all_active)
+    G, gj, has = args[0], args[1], args[-1]
     B = gj.shape[0]
-    args = (G, gj, act, x, q, live[:, None].contiguous(), diag2d,
-            regs.contiguous(), perm, has)
     ex, eq, same_live = _cmp_sweep(kern(*args), plain(*args))
     check(ex <= 1e-4 and eq <= 1e-4 and same_live,
           f"{variant} sweep: x err {ex}, q rel err {eq}, "
@@ -594,7 +609,10 @@ def main(argv=None):
               check_sweep(dev, rng, 4000, 512),
               check_sweep_large(large, all_active=True),
               check_sweep_large(large, all_active=False),
-              check_sweep_panel(large, "v3"), check_sweep_panel(large, "eager"),
+              check_sweep_panel(large, "v3", all_active=False),
+              check_sweep_panel(large, "v3", all_active=True),
+              check_sweep_panel(large, "eager", all_active=False),
+              check_sweep_panel(large, "eager", all_active=True),
               check_pack(dev, rng)]
     if args.profile is not None:
         profile_sweep(large, args.profile)

@@ -23,8 +23,8 @@ __all__ = ["learn", "get_topn", "write_model", "read_model"]
 def learn(train: CSR, cfg: Optional[SlimConfig] = None,
           imodel: Optional[CSR] = None, gram=None,
           keep_device_model: bool = False, device=None):
-    """Estimate a SLIM model with CD on ``device`` (default: the card when
-    present).  Returns (model CSR, stats dict); stats adds setup_s,
+    """Estimate a SLIM model with CD on ``device`` (default: the card; with
+    none it raises, a CPU run passes ``device="cpu"``).  Returns (model CSR, stats dict); stats adds setup_s,
     learn_s and total_s to the solver's.
 
     ``imodel`` warm-starts the solve; ``gram`` is a precomputed Gram in

@@ -47,8 +47,9 @@ def add_common_matrix_flags(parser):
 
 def add_device_flag(parser):
     parser.add_argument("--device", default=None,
-                        help="torch device [default: cuda when present, "
-                             "else cpu]")
+                        help="torch device [default: cuda; without a card "
+                             "the run stops, so a CPU run passes "
+                             "-device=cpu]")
 
 
 def setup_logging(dbglvl: int):

@@ -21,7 +21,9 @@ Three CUDA engines carry four entry points:
   operands, ``GROUP``-wide groups in ``perm`` order, each group's q tile
   corrected on load by the pending deltas of its window and its deltas
   flushed to all of q at the window's end.  The window is K_FLUSH groups
-  for v3 and one group for eager, in float32 both.
+  for v3 and one group for eager; the products run in bf16x3 on the
+  tensor cores as in the v4 counterpart, reading G's rows for its columns
+  (G is symmetric).
 
 One call = one sweep: for each active group or chunk a Gauss-Seidel chain
 over its coordinates (masked by active * live) and the propagation of its
@@ -236,17 +238,23 @@ def _launch(G, gj, act, x, q, live, diag2d, regs, perm, has, B, npad):
     return xo, qo, lo, nit, dltx
 
 
+def _window_scratch(G, K, B, dev):
+    """The bf16 halves of G (made once per G) and a windowed group sweep's
+    scratch: the group's q tile (GROUP * B floats) and the window's deltas
+    as bf16 halves Dh / Dl (K, B, GROUP); a slot is read only after its
+    group has written it."""
+    gh, gl = _split_of(G)
+    tile = torch.empty(GROUP * B, dtype=torch.float32, device=dev)
+    dh = torch.empty(K * B * GROUP, dtype=torch.bfloat16, device=dev)
+    return gh, gl, tile, dh, torch.empty_like(dh)
+
+
 def _launch_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has, B,
                   npad):
-    """One call of csrc/sweep_large.cu.  Scratch: the group's q tile qg
-    (GROUP, B) and the window's deltas as bf16 halves Dh / Dl (K_FLUSH, B,
-    GROUP); a slot is read only after its group has written it."""
+    """One call of csrc/sweep_large.cu (the q tile qg is (GROUP, B))."""
     xo, qo, lo, nit, dltx = _outputs(xT, qT, live)
-    gh, gl = _split_of(G)
     dev = xT.device
-    qg = torch.empty(GROUP * B, dtype=torch.float32, device=dev)
-    dh = torch.empty(K_FLUSH * B * GROUP, dtype=torch.bfloat16, device=dev)
-    dl = torch.empty_like(dh)
+    gh, gl, qg, dh, dl = _window_scratch(G, K_FLUSH, B, dev)
     perm, has = perm.contiguous(), has.contiguous()
     _build.check(_build.lib().slim_cd_sweep_large(
         G.data_ptr(), gh.data_ptr(), gl.data_ptr(), gjT.data_ptr(),
@@ -314,16 +322,17 @@ def _sweep_panel(wrapper, K, plain, G, gj, act, x, q, live, diag2d, regs,
     if gj.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {gj.device}")
     xo, qo, lo, nit, dltx = _outputs(x, q, live)
-    dX = torch.empty(K * GROUP * B, dtype=torch.float32, device=x.device)
-    qt = torch.empty(B * GROUP, dtype=torch.float32, device=x.device)
+    dev = x.device
+    gh, gl, qt, dh, dl = _window_scratch(G, K, B, dev)   # qt is (B, GROUP)
     perm, has = perm.contiguous(), has.contiguous()
     wrapper.launches += 1
     _build.check(_build.lib().slim_cd_sweep_panel(
-        K, G.data_ptr(), gj.data_ptr(), act.data_ptr(), diag2d.data_ptr(),
-        xo.data_ptr(), qo.data_ptr(), live.data_ptr(), regs.data_ptr(),
-        perm.data_ptr(), has.data_ptr(), perm.numel(), B, npad,
-        dX.data_ptr(), qt.data_ptr(), lo.data_ptr(), nit.data_ptr(),
-        dltx.data_ptr(), _build.stream_ptr(x.device)), "slim_cd_sweep_panel")
+        K, G.data_ptr(), gh.data_ptr(), gl.data_ptr(), gj.data_ptr(),
+        act.data_ptr(), diag2d.data_ptr(), xo.data_ptr(), qo.data_ptr(),
+        live.data_ptr(), regs.data_ptr(), perm.data_ptr(), has.data_ptr(),
+        perm.numel(), B, npad, qt.data_ptr(), dh.data_ptr(), dl.data_ptr(),
+        lo.data_ptr(), nit.data_ptr(), dltx.data_ptr(),
+        _build.stream_ptr(dev)), "slim_cd_sweep_panel")
     return xo, qo, lo, nit, dltx
 
 

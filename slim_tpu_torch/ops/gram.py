@@ -121,17 +121,17 @@ def gram_device(mat: CSR, pad_to: int | None = None, device=None):
 def compute_gram(mat: CSR, mode: str = "auto", pad_to: int | None = None,
                  device=None):
     """G padded to ``pad_to`` as a float32 tensor on ``device`` (default:
-    the card when one is present, else the CPU, as ``resolve_device``).
+    the card, as ``resolve_device``: with none it raises).
 
     ``mode``: "host" (scipy), "device" (densify kernel + contraction on
     ``device``), or "auto" = device when ``device`` is a CUDA card, host
     otherwise (see the module docstring)."""
+    if mode not in ("auto", "host", "device"):
+        raise ValueError(f"unknown gram mode {mode!r}")
     dev = resolve_device(device)
     n = pad_to if pad_to is not None else mat.ncols
     if mode == "auto":
         mode = "device" if dev.type == "cuda" else "host"
     if mode == "host":
         return torch.from_numpy(gram_host(mat, pad_to=n)).to(dev)
-    if mode == "device":
-        return gram_device(mat, pad_to=n, device=dev)
-    raise ValueError(f"unknown gram mode {mode!r}")
+    return gram_device(mat, pad_to=n, device=dev)

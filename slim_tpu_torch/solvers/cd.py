@@ -145,7 +145,7 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                       gram=None, keep_device_model=False, warm_pack=None,
                       device=None):
     """Estimate the SLIM model with batched coordinate descent on
-    ``device`` (default: the card when present).
+    ``device`` (default: the card; raises without one).
 
     Returns ``(model, stats)``: model is a CSR with rows = rated item,
     cols = target item (estimate.c:570-593); stats carries loss/fit/nnz,

@@ -18,8 +18,12 @@ def nnz_bucket(n: int, floor: int = 8) -> int:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else the first CUDA card when one is present,
-    else the CPU."""
+    """``device`` as given, else the first CUDA card.  With no device and no
+    card it raises: the port never falls back to the CPU unasked, a CPU run
+    passes ``device="cpu"``."""
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA card: pass device="cpu" (-device=cpu '
+                           'on the command line) to run on the CPU')
+    return torch.device("cuda")

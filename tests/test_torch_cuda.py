@@ -99,11 +99,10 @@ def test_solve_on_card_matches_plain_oracle(dev, rng, impl, npad, B):
     torch.testing.assert_close(got[4].cpu(), ref[4], rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("variant,npad,B", [("v3", 2048, 70),
-                                            ("eager", 1536, 33)])
-def test_panel_sweep_kernel_matches_plain(dev, rng, variant, npad, B):
-    """One sweep at a B off the kernels' tiles, inactive groups inside
-    windows: x atol 1e-4, q rel 1e-4, live equal."""
+def _panel_sweep_case(dev, rng, variant, npad, B, has=None):
+    """One row-major sweep on the card against its plain version (default
+    ``has``: every third group inactive): x atol 1e-4, q rel 1e-4, live
+    and nit equal, one launch counted."""
     Gm, gj, diag, act, caps, yty = _solve_inputs(dev, rng, 600, npad, B)
     ng = npad // S.GROUP
     x = torch.where(act, torch.rand(act.shape, device=dev) * 0.05, 0.0)
@@ -111,17 +110,39 @@ def test_panel_sweep_kernel_matches_plain(dev, rng, variant, npad, B):
     regs = torch.tensor([0.3, 0.5, 50.0, 0.0, 1e-7], device=dev) \
         .repeat(B, 1).contiguous()
     perm = torch.randperm(ng, device=dev).to(torch.int32)
-    has = (torch.arange(ng, device=dev) % 3 != 1).to(torch.int32)
+    has = (torch.arange(ng, device=dev) % 3 != 1) if has is None \
+        else torch.tensor(has, device=dev)
     args = (Gm, gj, act.to(torch.int8), x, x @ Gm, live,
-            diag.reshape(1, npad).contiguous(), regs, perm, has)
+            diag.reshape(1, npad).contiguous(), regs, perm,
+            has.to(torch.int32))
     kern = S.cd_sweep_v3 if variant == "v3" else S.cd_sweep_eager
     plain = S.cd_sweep_v3_plain if variant == "v3" else S.cd_sweep_eager_plain
+    launches = kern.launches
     got, ref = kern(*args), plain(*args)
     torch.cuda.synchronize()
+    assert kern.launches == launches + 1
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
     qscale = max(1.0, ref[1].abs().max().item())
     assert (got[1] - ref[1]).abs().max().item() <= 1e-4 * qscale
     assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+
+
+@pytest.mark.parametrize("variant,npad,B", [("v3", 2048, 70),
+                                            ("eager", 1536, 33)])
+def test_panel_sweep_kernel_matches_plain(dev, rng, variant, npad, B):
+    """One sweep at a B off the kernels' tiles, inactive groups inside
+    windows."""
+    _panel_sweep_case(dev, rng, variant, npad, B)
+
+
+@pytest.mark.parametrize("variant,npad,B,has", [
+    ("v3", 4096, 1024, [0, 1, 1, 1, 0, 0, 0, 0]),
+    ("eager", 2048, 200, [1, 0, 1, 1])])
+def test_panel_sweep_kernel_windows(dev, rng, variant, npad, B, has):
+    """v3 with a window whose first slot has no work and an all-inactive
+    window at the main path's B; eager at a B off the 64- and 128-row
+    tiles of its products."""
+    _panel_sweep_case(dev, rng, variant, npad, B, has)
 
 
 @pytest.mark.parametrize("npad,B,has", [(1024, 70, [0, 1]),

@@ -9,6 +9,7 @@ import torch
 from conftest import random_csr
 from slim_tpu.ops import cd_kernel as jcd
 from slim_tpu.ops.gram import gram_host as jax_gram_host
+from slim_tpu_torch import SlimConfig, learn
 from slim_tpu_torch.ops import cd_kernel as tcd
 from slim_tpu_torch.ops import densify as tdensify
 from slim_tpu_torch.ops import gram as tgram
@@ -59,15 +60,25 @@ def test_compute_gram_modes(rng):
         tgram.compute_gram(mat, "nope")
 
 
-def test_gram_default_device_is_resolved(rng):
-    """With no device, both entries return G on ``resolve_device()`` (the
-    card when one is present), as the JAX package's device Gram lands on
-    the default accelerator."""
+def test_gram_default_device_is_resolved(rng, monkeypatch):
+    """With no device the port runs on the card: ``resolve_device()`` is
+    cuda when a card is present (checked without allocating), and with no
+    card it and the entry points called without a device raise, never
+    falling back to the CPU; an explicit device is kept."""
     mat = _port(random_csr(rng, 50, 30, density=0.2))
-    want = resolve_device().type
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device()
     for mode in ("host", "device", "auto"):
-        assert tgram.compute_gram(mat, mode, pad_to=128).device.type == want
-    assert tgram.gram_device(mat, pad_to=128).device.type == want
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            tgram.compute_gram(mat, mode, pad_to=128)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tgram.gram_device(mat, pad_to=128)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        learn(mat, SlimConfig())
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
 
 
 @pytest.mark.parametrize("B", [32, 64, 96])

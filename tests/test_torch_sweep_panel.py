@@ -1,6 +1,8 @@
 """Row-major group sweeps with a deferred q flush (ports of
 pallas_cd_sweep_large_v3 and the eager pallas_cd_sweep_large) and their
-solve loop, held against the Pallas kernels in interpret mode."""
+solve loop, held against the Pallas kernels in interpret mode; the card
+kernel's windowed bf16x3 schedule, restated in PyTorch, against the plain
+version."""
 
 import numpy as np
 import pytest
@@ -150,6 +152,109 @@ def test_group_sweeps_agree_at_the_optimum():
                                    rtol=1e-4)
     with pytest.raises(ValueError):
         S.solve_panel_core(*args, None, variant="v4")
+
+
+def _windowed_bf16x3(G, gj, act, x, q, live, diag2d, regs, perm, has, K):
+    """The schedule of csrc/sweep_panel.cu in PyTorch, row-major: per
+    position with work the group's q tile (q itself at a window's first
+    slot, else corrected by the window's earlier slots with work), four GS
+    sub-chunks with the in-group product after each, and at the window's
+    last slot a flush over its slots with work.  Every product is bf16x3
+    (hi . hi + hi . lo + lo . hi, float32 sums) and reads G's rows for its
+    columns, G[n, k] for G[k, n], as the kernel does (G is symmetric)."""
+    def mm(d, g_rows):
+        """d @ g_rows.T in bf16x3: d (B, k) deltas, g_rows (n, k)."""
+        dh, dl = S.split_bf16(d)
+        gh, gl = S.split_bf16(g_rows)
+        f = lambda a: a.to(torch.float32)
+        return (f(dh) @ f(gh).T + f(dl) @ f(gh).T) + f(dh) @ f(gl).T
+
+    CH = 128
+    x, q = x.clone(), q.clone()
+    B = gj.shape[0]
+    lv, d = live[:, 0], diag2d[0]
+    l1, l2, cap, t0, tol = regs.unbind(dim=1)
+    D = torch.zeros((K, B, GROUP))
+    dltx = torch.zeros(B)
+    perm, has = perm.tolist(), has.tolist()
+    for pos, g in enumerate(perm):
+        slot, g0 = pos % K, pos - pos % K
+        win = [(k, perm[g0 + k] * GROUP) for k in range(slot + 1)
+               if has[g0 + k]]
+        lo, hi = g * GROUP, (g + 1) * GROUP
+        if has[pos]:
+            qt = q[:, lo:hi].clone()
+            for k, c in win:
+                if k < slot:
+                    qt += mm(D[k], G[lo:hi, c:c + GROUP])
+            for o in range(0, GROUP, CH):
+                sl = slice(lo + o, lo + o + CH)
+                okf = act[:, sl].to(torch.float32) * lv[:, None]
+                dx = S._gs_chain(gj[:, sl], x[:, sl],
+                                 qt[:, o:o + CH].clone(), okf, d[sl],
+                                 G[sl, sl], l1, l2)
+                D[slot, :, o:o + CH] = dx
+                x[:, sl] += dx
+                dltx += (dx * dx).sum(dim=1)
+                if o + CH < GROUP:
+                    qt[:, o + CH:] += mm(dx, G[lo + o + CH:hi, sl])
+        if slot == K - 1:
+            for k, c in win:
+                q += mm(D[k], G[:, c:c + GROUP])
+    end = S._end_of_sweep(lv, dltx, cap, t0, tol)
+    return x, q, end[:, None], lv[:, None].clone(), dltx[:, None]
+
+
+# (K, npad in groups, perm, has): a window whose first slot has no work and
+# an all-inactive window, inactive slots inside windows, windows of one
+PANEL_WINDOWS = [(4, 8, [0, 3, 5, 1, 2, 7, 4, 6], [0, 1, 1, 1, 0, 0, 0, 0]),
+                 (4, 8, [0, 3, 5, 1, 2, 7, 4, 6], [1, 0, 1, 1, 0, 1, 0, 1]),
+                 (4, 4, [2, 0, 3, 1], [0, 0, 1, 1]),
+                 (1, 3, [2, 0, 1], [0, 1, 1]),
+                 (1, 8, [0, 3, 5, 1, 2, 7, 4, 6], [0, 0, 0, 0, 1, 1, 0, 1]),
+                 (1, 2, [1, 0], [1, 1])]
+
+
+def _coupled_operands(seed, npad, perm, has, B=32):
+    """One sweep's operands on G = AᵀA of a random binary A whose columns
+    co-occur across all groups, and a small x0, so each group's updates
+    depend on the pending deltas of its window (a schedule that dropped the
+    load corrections, the in-group products or a slot of the flush would
+    move x by ~0.1)."""
+    rng = np.random.default_rng(seed)
+    A = (rng.random((300, npad)) < 0.02).astype(np.float32)
+    G = A.T @ A
+    np.fill_diagonal(G, np.maximum(np.diagonal(G), 1.0))
+    J = np.arange(B) * (npad // B)
+    gj = G[:, J].T.copy()
+    active = (gj > 0.3) & (np.arange(npad)[None, :] != J[:, None])
+    x = np.where(active, rng.random(active.shape) * 1e-3, 0.0) \
+        .astype(np.float32)
+    live = (rng.random(B) < 0.85).astype(np.float32)[:, None]
+    regs = np.stack([np.full(B, 0.3), np.full(B, 0.5),
+                     np.where(np.arange(B) % 3, 200.0, 1.0),
+                     np.zeros(B), np.full(B, 1e-6)], axis=1).astype(np.float32)
+    diag2d = np.diagonal(G).reshape(1, npad).copy()
+    return [t(a) for a in (G, gj, active.astype(np.int8), x, x @ G, live,
+                           diag2d, regs, np.array(perm, np.int32),
+                           np.array(has, np.int32))]
+
+
+@pytest.mark.parametrize("K,ngroups,perm,has", PANEL_WINDOWS)
+def test_windowed_bf16x3_schedule_matches_plain(K, ngroups, perm, has):
+    """The card kernel's schedule (window loads, in-group products, flushes)
+    with bf16x3 products agrees with the plain version within the card
+    check's tolerances: x 1e-4 abs, q 1e-4 of max |q|, live and nit equal;
+    the flushed q is x'G."""
+    ops = _coupled_operands(23, ngroups * GROUP, perm, has)
+    got = _windowed_bf16x3(*ops, K)
+    ref = PLAIN["v3" if K == K_FLUSH else "eager"](*ops)
+    assert (got[0] - ref[0]).abs().max().item() <= 1e-4
+    qscale = max(1.0, ref[1].abs().max().item())
+    assert (got[1] - ref[1]).abs().max().item() <= 1e-4 * qscale
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    torch.testing.assert_close(got[4], ref[4], rtol=1e-3, atol=1e-9)
+    assert (got[1] - got[0] @ ops[0]).abs().max().item() <= 1e-4 * qscale
 
 
 @pytest.mark.parametrize("v4,v3,width,want", [
