@@ -8,21 +8,29 @@
 Phases (any failure exits non-zero, and no result line is printed):
   1. card name and power limit (nvidia-smi); build the CUDA kernels.
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes: densify (npad 28672), row-major sweep (npad 384,
-     the synth path's, and 4096), the coordinate-major sweep at B 1024,
+     main path's shapes: densify (npad 28672), the whole-array row-major
+     sweep (B 512 at npad 384, the synth path's, and 4096, the ML-1M
+     path's; timed with 2 and with 4 columns per GS block), the
+     coordinate-major sweep at B 1024,
      npad 28672, one sweep with every group active (phase 4's shape) and
      with 38 of 56 groups active, the row-major deferred-flush sweeps v3
      and eager at the same two, pack (1024, 28672).  Each line gives the
      max error, the kernel's and the plain version's times, the bound (the
      larger of the bytes the function must move over 3.35 TB/s and its
      operations over the peak of their type) with what sets it, the
-     kernel's share of it, and for densify the time of the one PyTorch
-     call that computes the same function (``index_put_`` with
-     accumulate).  With --profile DIR, one sweep of each wide-block
+     kernel's share of it, and the time of the one PyTorch call that
+     computes the same function: ``index_put_`` with accumulate for
+     densify, ``masked_select`` + ``nonzero`` for pack (the harvest's
+     offsets are contiguous).  With --profile DIR, one sweep of each wide-block
      variant (v4, v3, eager; all active, then 38/56) runs under
      torch.profiler; its device time by kernel goes to
      DIR/profile_sweep.json.
   3. the vendored synth set through learn / get_topn: the quality goldens.
+  3b. a MovieLens-1M-shaped learn (datagen.synth_implicit(6040, 3706,
+     1000209, seed=0), nothing downloaded): npad 4096, so every block
+     solves on the whole-array sweep; predict top-10 for every user.
+     Objective and model nnz against the JAX package's result on the same
+     matrix; the first 256 users' ids against the CPU path.
   4. the ML-20M synth workload at full scale (generated once, shared by
      phases 4-6): learn -> predict_topn for every user; objective and model
      nnz against the JAX package's result.  With --profile DIR this phase
@@ -36,7 +44,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      device pack must densify to its model.
   6. one cold learn with SLIM_PALLAS_V3=0 SLIM_PALLAS_V4=0 (the eager
      sweep), held to the same gates.
-  7. the kernels line.  Phases 3-6 are each driven with every launch
+  7. the kernels line.  Phases 3-6 (3b too) are each driven with every launch
      counter set to 0 just before and read just after; each path must
      launch its own kernels (PATH_KERNELS) and no other wide-block sweep.
      A kernel's ``launches`` is the sum of its per-path counts
@@ -68,17 +76,32 @@ SYNTH_LOSS, SYNTH_NNZ, SYNTH_HR, SYNTH_ARHR = 4730.0005, 10613, 0.230833, 0.1359
 # package's objective and model nnz
 ML20M_OBJ, ML20M_NNZ = 9415007.30, 34464838
 ML20M_CFG = dict(optTol=1e-7, maxniters=10000, block_size=1024)
+# MovieLens-1M's shape (GroupLens' ML-1M README: 6,040 users, 3,706 rated
+# movies, 1,000,209 ratings), l1r = l2r = 1: the JAX package's objective
+# and model nnz on JAX-CPU (204 sweeps), from
+#   JAX_PLATFORMS=cpu python -c "from slim_tpu import api;
+#     from slim_tpu.config import SlimConfig;
+#     from slim_tpu.datagen import synth_implicit;
+#     print(api.learn(synth_implicit(6040, 3706, 1_000_209, seed=0),
+#       SlimConfig(l1r=1.0, l2r=1.0, optTol=1e-7, maxniters=10000,
+#                  block_size=512))[1])"
+ML1M_SHAPE = (6040, 3706, 1_000_209)
+ML1M_OBJ, ML1M_NNZ = 388952.659, 886847
+ML1M_CFG = dict(optTol=1e-7, maxniters=10000, block_size=512)
 MSELECT_POINTS = [(2.0, 2.0), (1.0, 1.0)]
-# the kernels each driven path must launch: the synth set (npad 384) solves
-# on the row-major sweep, every ML-20M block on the wide-block sweep its
-# variant picks (v4 by default, v3 and eager under the env switches)
+# the kernels each driven path must launch: the synth set (npad 384) and
+# the ML-1M shape (npad 4096) solve on the whole-array row-major sweep,
+# every ML-20M block on the wide-block sweep its variant picks (v4 by
+# default, v3 and eager under the env switches)
 PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
+                "ml1m": ("densify", "cd_sweep", "pack"),
                 "ml20m": ("densify", "cd_sweep_large", "pack"),
                 "mselect": ("densify", "cd_sweep_v3", "pack"),
                 "eager": ("densify", "cd_sweep_eager", "pack")}
 WIDE_SWEEPS = ("cd_sweep_large", "cd_sweep_v3", "cd_sweep_eager")
-_SWEEP_UNIT = ("sweeps: one wrapper call enqueues a GS-chain and a "
-               "propagation kernel per chunk and an end-of-sweep kernel")
+_SWEEP_UNIT = ("sweeps: one wrapper call enqueues, per 128-wide chunk of "
+               "the visit order, a group kernel (GS chain) and a "
+               "tensor-core flush, and an end-of-sweep kernel")
 _LARGE_UNIT = ("sweeps: one wrapper call enqueues, per group of the visit "
                "order, a q-tile load and a group kernel (GS chain + in-group "
                "tensor-core product), a tensor-core flush per window with "
@@ -260,25 +283,28 @@ def _cmp_sweep(got, ref):
     return ex, eq, torch.equal(got[2], ref[2])
 
 
-def check_sweep(dev, rng, n, B):
-    from slim_tpu_torch.ops.cd_sweep import cd_sweep, cd_sweep_plain
+def check_sweep(ops):
+    """The whole-array sweep (random ``has``, about 80% of the chunks
+    active; dead columns)."""
+    from slim_tpu_torch.ops import cd_sweep as S
 
-    G, gj, act, x, q, live, diag2d, regs, perm, has = _sweep_inputs(
-        dev, rng, n, 4 * n, 40 * n, B, large=False)
-    args = (G, gj, act, x, q, live[:, None].contiguous(), diag2d,
-            regs.contiguous(), perm, has)
-    ex, eq, same_live = _cmp_sweep(cd_sweep(*args), cd_sweep_plain(*args))
+    args = _panel_args(ops, all_active=False)
+    G, gj, has = args[0], args[1], args[-1]
+    B = gj.shape[0]
+    ref = S.cd_sweep_plain(*args)
+    ex, eq, same_live = _cmp_sweep(S.cd_sweep(*args), ref)
     check(ex <= 1e-4 and eq <= 1e-4 and same_live,
           f"sweep npad {G.shape[0]}: x err {ex}, q rel err {eq}, "
           f"live equal {same_live}")
     npad, na = G.shape[0], int(has.sum())
     line = dict(name=f"cd_sweep@{npad}", route="cuda",
-                source="slim_tpu_torch/csrc/sweep.cu",
+                source="slim_tpu_torch/csrc/sweep_panel.cu",
                 replaces="slim_tpu/ops/pallas_cd.py:58",
                 max_abs_err=ex, q_rel_err=eq,
-                ms=cuda_ms(lambda: cd_sweep(*args), 5),
-                plain_ms=cuda_ms(lambda: cd_sweep_plain(*args), 1),
-                shape=f"B={B} npad={npad}", tol="x 1e-4, q 1e-4 rel")
+                ms=cuda_ms(lambda: S.cd_sweep(*args), 20),
+                plain_ms=cuda_ms(lambda: S.cd_sweep_plain(*args), 1),
+                shape=f"B={B} npad={npad} active={na}/{has.numel()}",
+                tol="x 1e-4, q 1e-4 rel")
     # per active chunk: its G rows, the propagation and the GS triangle
     return with_bound(line, 4.0 * 128 * npad * na + B * npad * 21.0,
                       na * (2.0 * B * npad * 128 + B * 128 * 128.0))
@@ -321,8 +347,9 @@ def check_sweep_large(ops, all_active):
 
 
 def _panel_args(ops, all_active):
-    """cd_sweep_v3 / cd_sweep_eager's arguments (row-major) from ``ops``:
-    every group active, or ``ops``'s own ``has``."""
+    """The row-major sweeps' arguments (cd_sweep, cd_sweep_v3,
+    cd_sweep_eager) from ``ops``: every group active, or ``ops``'s own
+    ``has``."""
     G, gj, act, x, q, live, diag2d, regs, perm, has = ops
     if all_active:
         has = torch.ones_like(has)
@@ -330,22 +357,25 @@ def _panel_args(ops, all_active):
             regs.contiguous(), perm, has)
 
 
-def profile_sweep(ops, out_dir, reps=3):
+def profile_sweep(ops, row, out_dir, reps=3):
     """Device time by kernel of one sweep of each wide-block variant (v4,
-    v3, eager), all groups active and at ``ops``'s own ``has``, under
-    torch.profiler: calls and milliseconds per sweep of each device
-    kernel, to ``out_dir/profile_sweep.json`` and to stdout."""
+    v3, eager) on ``ops`` and of the whole-array sweep on ``row``, all
+    groups active and at the operands' own ``has``, under torch.profiler:
+    calls and milliseconds per sweep of each device kernel, to
+    ``out_dir/profile_sweep.json`` and to stdout."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from slim_tpu_torch.ops import cd_sweep as S
 
     out = []
-    for variant, fn, make in (("v4", S.cd_sweep_large, _large_args),
-                              ("v3", S.cd_sweep_v3, _panel_args),
-                              ("eager", S.cd_sweep_eager, _panel_args)):
+    for variant, fn, make, src in (
+            ("v4", S.cd_sweep_large, _large_args, ops),
+            ("v3", S.cd_sweep_v3, _panel_args, ops),
+            ("eager", S.cd_sweep_eager, _panel_args, ops),
+            ("row", S.cd_sweep, _panel_args, row)):
         for all_active in (True, False):
-            args = make(ops, all_active)
+            args = make(src, all_active)
             ms = cuda_ms(lambda: fn(*args), reps)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
@@ -415,14 +445,26 @@ def check_pack(dev, rng):
     v0, i0 = pack_plain(xd, od, 1e-7, Tpad)
     same = torch.equal(v1, v0) and torch.equal(i1, i0)
     check(same, "pack differs from plain")
+
+    # the library pair at the harvest's contiguous offsets: the values in
+    # row-major order and their column ids
+    def library():
+        m = xd > 1e-7
+        return torch.masked_select(xd, m), torch.nonzero(m)[:, 1]
+
+    T = int(c.sum())
+    lv, li = library()
+    check(torch.equal(lv, v0[:T]) and torch.equal(li.to(torch.int32), i0[:T]),
+          "masked_select + nonzero differ from the pack")
     line = dict(name="pack", route="cuda",
                 source="slim_tpu_torch/csrc/pack.cu",
                 replaces="slim_tpu/ops/pallas_pack.py:41", max_abs_err=0.0,
-                ms=cuda_ms(lambda: pack(xd, od, 1e-7, Tpad), 10),
+                ms=cuda_ms(lambda: pack(xd, od, 1e-7, Tpad), 20),
                 plain_ms=cuda_ms(lambda: pack_plain(xd, od, 1e-7, Tpad), 3),
                 shape=f"B={B} K={K}", tol="bit-equal")
     # x and the offsets read once, values and ids written once
-    return with_bound(line, 4.0 * B * K + 4.0 * B + 8.0 * Tpad)
+    return with_bound(line, 4.0 * B * K + 4.0 * B + 8.0 * Tpad,
+                      library_ms=cuda_ms(library, 20))
 
 
 def run_synth(dev):
@@ -448,6 +490,71 @@ def run_synth(dev):
           f"synth nnz {stats['nnz']}")
     check(abs(res.hr - SYNTH_HR) < 0.015, f"synth hr {res.hr}")
     check(abs(res.arhr - SYNTH_ARHR) < 0.010, f"synth arhr {res.arhr}")
+    return out
+
+
+def _head_rows(mat, n):
+    """The first ``n`` rows of a CSR, same columns."""
+    from slim_tpu_torch.types import CSR
+
+    end = int(mat.indptr[n])
+    return CSR.from_arrays(n, mat.ncols, mat.indptr[:n + 1].copy(),
+                           mat.indices[:end],
+                           None if mat.data is None else mat.data[:end])
+
+
+def run_ml1m(dev):
+    """Phase 3b: a learn at MovieLens-1M's shape, every block on the
+    whole-array sweep (npad 4096), then top-10 for every user."""
+    from slim_tpu_torch import SlimConfig, learn
+    from slim_tpu_torch.datagen import synth_implicit
+    from slim_tpu_torch.ops import cd_sweep as S
+    from slim_tpu_torch.predict import predict_topn
+
+    trn = synth_implicit(*ML1M_SHAPE, seed=0)
+    sweeps0 = S.cd_sweep.launches
+    model, stats = learn(trn, SlimConfig(l1r=1.0, l2r=1.0, dbglvl=2,
+                                         **ML1M_CFG), device=dev)
+    calls = S.cd_sweep.launches - sweeps0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, sc, counts = predict_topn(model, trn, nrcmds=10, device=dev)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    # the first 256 users against the CPU path: the same counts, scores
+    # within 1e-5 rel, and the same ids except where two neighbouring CPU
+    # scores differ by under 1e-5 rel (f32 sums in another order may swap
+    # such a pair); exact ties must come in the same (lowest-id) order
+    ids_c, sc_c, cnt_c = predict_topn(model, _head_rows(trn, 256),
+                                      nrcmds=10, device="cpu")
+    mism = ids[:256] != ids_c
+    lo, hi = sc_c[:, 1:], sc_c[:, :-1]
+    close = np.isclose(lo, hi, rtol=1e-5, atol=0) & (lo != hi)
+    near = np.zeros_like(mism)
+    near[:, 1:] |= close
+    near[:, :-1] |= close
+    solve_s = stats["phases"]["solve"]
+    out = dict(nrows=trn.nrows, ncols=trn.ncols, nnz=trn.nnz,
+               learn_s=stats["learn_s"], phases=stats["phases"],
+               sweeps=stats["sweeps"], sweep_calls=calls,
+               solve_ms_per_sweep=1e3 * solve_s / max(calls, 1),
+               niters=stats["niters"], objective=stats["loss"],
+               model_nnz=stats["nnz"], predict_s=pred_s,
+               predict_users_per_s=trn.nrows / pred_s,
+               ids_differ=int(mism.sum()), ids_differ_off_near_ties=int(
+                   (mism & ~near).sum()))
+    print("ml1m:", json.dumps(out))
+    check(ids.shape == (trn.nrows, 10) and np.all(ids < trn.ncols),
+          "ml1m predict output malformed")
+    check(np.array_equal(counts[:256], cnt_c)
+          and np.allclose(sc[:256], sc_c, rtol=1e-5, atol=1e-6),
+          "ml1m predict counts / scores differ from the CPU path")
+    check(out["ids_differ_off_near_ties"] == 0,
+          f"ml1m predict ids differ from the CPU path: {out}")
+    check(abs(stats["loss"] - ML1M_OBJ) <= 1e-4 * ML1M_OBJ,
+          f"ML-1M objective {stats['loss']}")
+    check(abs(stats["nnz"] - ML1M_NNZ) <= 0.01 * ML1M_NNZ,
+          f"ML-1M model nnz {stats['nnz']}")
     return out
 
 
@@ -523,7 +630,8 @@ def run_mselect(dev, trn, cold_niters):
     tst = synth_implicit(trn.nrows, trn.ncols, trn.nrows, seed=1)
     pack_err = []
 
-    def cb(rec, model, pack):
+    def cb(rec, model):
+        pack = rec["pack"]
         check(pack is not None, "mselect kept no device model")
         ref = densify_model(model, npad=pack.npad, device=dev)
         pack_err.append((pack.densify() - ref).abs().max().item())
@@ -605,9 +713,11 @@ def main(argv=None):
 
     rng = np.random.default_rng(0)
     large = _sweep_inputs(dev, rng, 27278, 20000, 2_000_000, 1024, large=True)
-    checks = [check_densify(dev, rng), check_sweep(dev, rng, 300, 512),
-              check_sweep(dev, rng, 4000, 512),
-              check_sweep_large(large, all_active=True),
+    checks = [check_densify(dev, rng)]
+    row = [_sweep_inputs(dev, rng, n, 4 * n, 40 * n, 512, large=False)
+           for n in (300, 4000)]
+    checks += [check_sweep(row[0]), check_sweep(row[1]),
+               check_sweep_large(large, all_active=True),
               check_sweep_large(large, all_active=False),
               check_sweep_panel(large, "v3", all_active=False),
               check_sweep_panel(large, "v3", all_active=True),
@@ -615,8 +725,8 @@ def main(argv=None):
               check_sweep_panel(large, "eager", all_active=True),
               check_pack(dev, rng)]
     if args.profile is not None:
-        profile_sweep(large, args.profile)
-    del large
+        profile_sweep(large, row[1], args.profile)
+    del large, row
     for c in checks:
         print("check:", json.dumps(c), flush=True)
     lap("kernels")
@@ -631,6 +741,7 @@ def main(argv=None):
                 "cd_sweep_eager": S.cd_sweep_eager, "pack": pack}
     results = {}
     drives = (("synth", lambda: run_synth(dev)),
+              ("ml1m", lambda: run_ml1m(dev)),
               ("ml20m", lambda: run_ml20m(dev, trn, args.profile)),
               ("mselect", lambda: run_mselect(dev, trn,
                                               results["ml20m"]["niters"])),
@@ -663,10 +774,11 @@ def main(argv=None):
                 name=base, route=c["route"], source=c["source"],
                 replaces=c["replaces"], launches=sum(per_path.values()),
                 launches_by_path=per_path, launch_unit=LAUNCH_UNIT[base],
-                **{k: c[k] for k in timed})
+                **{k: c[k] for k in timed if k in c})
         else:
             e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
-            e.setdefault("extra", []).append({k: c[k] for k in timed})
+            e.setdefault("extra", []).append(
+                {k: c[k] for k in timed if k in c})
     print("wall:", json.dumps(dict(walls, total=time.perf_counter() - t_run)))
     print(card_line())
     print(json.dumps({"kernels": list(by_name.values())}))

@@ -36,9 +36,10 @@ def learn(train: CSR, cfg: Optional[SlimConfig] = None,
     cfg = cfg or SlimConfig()
     if cfg.algo != "cd":
         raise NotImplementedError(f"algo {cfg.algo!r} is not ported yet")
-    if cfg.mtype != "slim":
-        raise NotImplementedError(f"mtype {cfg.mtype!r} (FSLIM / ordered "
-                                  "variants) is not ported yet")
+    # oslim learns as slim: the reference never reads ``ordered``
+    if cfg.mtype not in ("slim", "oslim"):
+        raise NotImplementedError(f"mtype {cfg.mtype!r} (FSLIM) is not "
+                                  "ported yet")
     t_total = time.perf_counter()
     tmat = train.infer_ncols()     # CreateTrainingMatrix, setup.c:109-135
     t_setup = time.perf_counter() - t_total

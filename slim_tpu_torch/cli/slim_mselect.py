@@ -67,7 +67,7 @@ def main(argv=None):
 
     cb = None
     if args.writemodels:
-        def cb(rec, model, pack):
+        def cb(rec, model):
             write_matrix(model, f"{rec['l1r']} {rec['l2r']}.model",
                          fmt=args.ifmt if args.ifmt != "csrnv" else "csr")
 

@@ -166,7 +166,8 @@ extern "C" int slim_cd_sweep_large(
   }
   static bool smem_set = false;
   if (!smem_set) {
-    const cudaError_t e = set_smem(group_kernel<false>, GROUP_SMEM);
+    const cudaError_t e =
+        set_smem(group_kernel<false>, group_smem<GROUP>());
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
@@ -188,8 +189,8 @@ extern "C" int slim_cd_sweep_large(
         GROUP, s);
     if (e != cudaSuccess) return static_cast<int>(e);
     // 2. GS chain and in-group propagation
-    group_kernel<false><<<(B + GCOLS - 1) / GCOLS, GCOLS * 32, GROUP_SMEM,
-                          s>>>(
+    group_kernel<false><<<(B + GCOLS - 1) / GCOLS, GCOLS * 32,
+                          group_smem<GROUP>(), s>>>(
         static_cast<const float*>(G), gh, gl, static_cast<const float*>(gjT),
         static_cast<const int8_t*>(actT), static_cast<const float*>(diag),
         static_cast<float*>(xT), qgf, 1, B, 0,

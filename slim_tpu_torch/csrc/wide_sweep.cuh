@@ -1,34 +1,64 @@
-// Tensor-core building blocks of the wide-block sweeps (sweep_large.cu,
-// coordinate-major; sweep_panel.cu, row-major), sm_90a: cp.async copies,
-// the 64-byte swizzle and wgmma descriptors of K-major bf16 tiles, wgmma
-// m64nNk16 and mma.sync m16n8k16 (bf16 in, f32 accumulate), the
-// cp.async-fed wgmma main loop of the bf16x3 window products, and the
-// group kernel (GS chain + in-group product) in both layouts.
+// Building blocks of the sweep engines (sweep_large.cu, coordinate-major;
+// sweep_panel.cu, row-major), sm_90a: cp.async copies, the 64-byte swizzle
+// and wgmma descriptors of K-major bf16 tiles, wgmma m64nNk16 and mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), the cp.async-fed wgmma main loop of
+// the bf16x3 window products, the group kernel (GS chain + in-group
+// product) in both layouts, and the end-of-sweep kernel.
 //
 // bf16x3: G = Gh + Gl and dx = Dh + Dl in bf16, G . dx ~ Gh.Dh + Gh.Dl +
 // Gl.Dh with f32 accumulation (about 2^-17 relative per term, the same
 // order as an f32 sum of 512 terms).  The wrapper splits G once per G; the
 // group kernel writes Dh / Dl in the (slot, column, coordinate) layout
-// (K, B, 512) in both engines.
+// (K, B, GW) in both engines, GW the group width (512 for the wide-block
+// sweeps, 128 for the whole-array row-major sweep).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sweep_common.cuh"
-
 namespace {
 
-constexpr int GROUP = 512;       // coordinates per group
+constexpr int GROUP = 512;       // coordinates per group (wide blocks)
 constexpr int CH = 128;          // coordinates per GS sub-chunk
 constexpr int KF = 4;            // most groups in a flush window
 constexpr int GCOLS = 4;         // columns (warps) per group-kernel block
 constexpr int DPITCH = CH + 8;   // bf16 pitch of the staged deltas
-constexpr int GROUP_SMEM =
-    (CH * CH + GCOLS * GROUP) * 4 + 2 * 8 * DPITCH * 2;
+
+// dynamic shared memory of a group kernel of width GW
+template <int GW>
+constexpr int group_smem() {
+  return (CH * CH + GCOLS * GW) * 4 + 2 * 8 * DPITCH * 2;
+}
 
 constexpr int BK = 32;           // contraction depth of a wgmma stage
+
+// per-column register k of column b: regs is (B, 5) in layout 0 (row-major
+// sweeps) and (5, B) in layout 1 (coordinate-major); k = l1r, l2r, cap, t0,
+// optTol
+__device__ __forceinline__ float reg(const float* regs, int layout, int k,
+                                     int b, int B) {
+  return layout == 0 ? regs[b * 5 + k] : regs[k * B + b];
+}
+
+// end of sweep: nit = live at sweep start; a column dies when
+// sum(dx^2) < optTol or t0 + 1 >= cap
+__global__ void sweep_end_kernel(int layout, const float* __restrict__ live_in,
+                                 const float* __restrict__ regs,
+                                 const float* __restrict__ dltx,
+                                 float* __restrict__ live_out,
+                                 float* __restrict__ nit, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const float lv = live_in[b];
+  const float cap = reg(regs, layout, 2, b, B);
+  const float t0 = reg(regs, layout, 3, b, B);
+  const float tol = reg(regs, layout, 4, b, B);
+  const float keep = (dltx[b] < tol ? 0.0f : 1.0f) *
+                     ((t0 + 1.0f) < cap ? 1.0f : 0.0f);
+  nit[b] = lv;
+  live_out[b] = lv * keep;
+}
 
 // A staged tile row holds BK = 32 bf16 (four 16-byte chunks); chunk c of
 // row r sits at c ^ ((r >> 1) & 3): wgmma's 64-byte swizzle, with the tiles
@@ -248,12 +278,14 @@ cudaError_t set_smem(F* kernel, int bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// GS chain and in-group propagation of the group at position pos, one warp
-// per column.  x / gj / act are (B, npad) in ROW_MAJOR, else (npad, B), and
-// regs (B, 5) or (5, B) to match.  Column b's q tile of the group is
-// qt[b * qsb + r * qsr], r < 512, with qt offset by perm[pos] * 512
-// coordinates when qperm is set (a tile read straight from q).  The deltas
-// update x in place and go, split into bf16 halves, to D[slot] (B, 512).
+// GS chain and in-group propagation of the group of GW coordinates at
+// position pos, one warp per column, GCOLS columns per block.  x / gj / act
+// are (B, npad) in ROW_MAJOR, else (npad, B), and regs (B, 5) or (5, B) to
+// match.  Column b's q tile of the group is qt[b * qsb + r * qsr], r < GW,
+// with qt offset by perm[pos] * GW coordinates when qperm is set (a tile
+// read straight from q).  The deltas update x in place and go, split into
+// bf16 halves, to D[slot] (B, GW).  At GW = CH the group is one sub-chunk
+// and there is no in-group product.
 //
 // Lane l holds q_j for j = l mod 32 of the sub-chunk in registers; each
 // lane evaluates its own coordinate's update and the step's owner lane is
@@ -262,9 +294,9 @@ cudaError_t set_smem(F* kernel, int bytes) {
 // multiply by its reciprocal, made before the chain.  The 128 x 128
 // diagonal block sits in shared memory (cp.async; the next sub-chunk's
 // block lands while the in-group product runs).  The in-group product
-// qt[later] += G[later, sub] . dx has the block's four columns as N, so it
+// qt[later] += G[later, sub] . dx has the block's GCOLS columns as N, so it
 // runs on mma.sync m16n8k16 fed from registers.
-template <bool ROW_MAJOR>
+template <bool ROW_MAJOR, int GW = GROUP>
 __global__ void __launch_bounds__(GCOLS * 32)
 group_kernel(const float* __restrict__ G, const bf16* __restrict__ Gh,
              const bf16* __restrict__ Gl, const float* __restrict__ gj,
@@ -279,13 +311,13 @@ group_kernel(const float* __restrict__ G, const bf16* __restrict__ Gh,
   if (has[pos] == 0) return;
   extern __shared__ __align__(16) float gsm[];
   float* gcc = gsm;                       // [i][j] diagonal block
-  float* qs = gcc + CH * CH;              // [column][512] q tile
-  bf16* dh = reinterpret_cast<bf16*>(qs + GCOLS * GROUP);  // [n][k] deltas
+  float* qs = gcc + CH * CH;              // [column][GW] q tile
+  bf16* dh = reinterpret_cast<bf16*>(qs + GCOLS * GW);  // [n][k] deltas
   bf16* dl = dh + 8 * DPITCH;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x * GCOLS + w;
   const bool valid = b < B;
-  const int base = perm[pos] * GROUP;
+  const int base = perm[pos] * GW;
   // element (coordinate c, column b) of x / gj / act
   auto at = [&](int c) {
     return ROW_MAJOR ? static_cast<long long>(b) * npad + c
@@ -315,13 +347,13 @@ group_kernel(const float* __restrict__ G, const bf16* __restrict__ Gh,
   const float* qcol =
       qt + (qperm ? base * qsr : 0) + static_cast<long long>(b) * qsb;
 #pragma unroll
-  for (int t = 0; t < GROUP / 32; ++t) {
+  for (int t = 0; t < GW / 32; ++t) {
     const int r = lane + 32 * t;
-    qs[w * GROUP + r] = valid ? qcol[r * qsr] : 0.0f;
+    qs[w * GW + r] = valid ? qcol[r * qsr] : 0.0f;
   }
   float dsum = 0.0f;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
-  for (int o = 0; o < GROUP; o += CH) {
+  for (int o = 0; o < GW; o += CH) {
     const int c0 = base + o;
     float xr[4], gr[4], okr[4], dr[4], rinv[4], qr[4], dxr[4];
 #pragma unroll
@@ -338,7 +370,7 @@ group_kernel(const float* __restrict__ G, const bf16* __restrict__ Gh,
     cp_wait<0>();
     __syncthreads();   // gcc staged; qs holds the previous products
 #pragma unroll
-    for (int t = 0; t < 4; ++t) qr[t] = qs[w * GROUP + o + lane + 32 * t];
+    for (int t = 0; t < 4; ++t) qr[t] = qs[w * GW + o + lane + 32 * t];
     if (valid && lv != 0.0f) {
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
@@ -365,7 +397,7 @@ group_kernel(const float* __restrict__ G, const bf16* __restrict__ Gh,
       }
     }
     __syncthreads();   // every chain is done with gcc
-    if (o + CH < GROUP) stage_gcc(c0 + CH);   // lands during the product
+    if (o + CH < GW) stage_gcc(c0 + CH);   // lands during the product
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       const int j = lane + 32 * t;
@@ -376,7 +408,7 @@ group_kernel(const float* __restrict__ G, const bf16* __restrict__ Gh,
       dsum += dxr[t] * dxr[t];
       if (valid) {
         const long long a =
-            (static_cast<long long>(slot) * B + b) * GROUP + o + j;
+            (static_cast<long long>(slot) * B + b) * GW + o + j;
         x[at(c0 + j)] = xr[t];
         Dh[a] = hi;
         Dl[a] = lo;
@@ -387,7 +419,7 @@ group_kernel(const float* __restrict__ G, const bf16* __restrict__ Gh,
     // cores (mma.sync), one m16 row tile per warp at a time, the block's
     // columns as n8
     const int r0 = o + CH;
-    for (int mt = w; mt < (GROUP - r0) / 16; mt += GCOLS) {
+    for (int mt = w; mt < (GW - r0) / 16; mt += GCOLS) {
       float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       const long long ra =
           static_cast<long long>(base + r0 + mt * 16 + g) * npad;
@@ -410,12 +442,12 @@ group_kernel(const float* __restrict__ G, const bf16* __restrict__ Gh,
       }
       const int lr = r0 + mt * 16 + g;
       if (c2 < GCOLS) {
-        qs[c2 * GROUP + lr] += acc[0];
-        qs[c2 * GROUP + lr + 8] += acc[2];
+        qs[c2 * GW + lr] += acc[0];
+        qs[c2 * GW + lr + 8] += acc[2];
       }
       if (c2 + 1 < GCOLS) {
-        qs[(c2 + 1) * GROUP + lr] += acc[1];
-        qs[(c2 + 1) * GROUP + lr + 8] += acc[3];
+        qs[(c2 + 1) * GW + lr] += acc[1];
+        qs[(c2 + 1) * GW + lr + 8] += acc[3];
       }
     }
   }

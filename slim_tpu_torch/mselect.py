@@ -41,13 +41,14 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
     returns the per-point records plus the best-by-HR / best-by-ARHR
     summaries.  Each record carries the JAX package's keys and the
     solver's ``loss``, ``niters`` and ``sweeps``.
-    ``point_callback(rec, model, pack)`` runs after each evaluation; pack
-    is the retained :class:`~slim_tpu_torch.predict.DeviceModelPack` or
-    None."""
+    ``point_callback(rec, model)`` runs after each evaluation, as in the
+    JAX package; its ``rec`` is a copy of the point's record with
+    ``rec["pack"]``, the retained
+    :class:`~slim_tpu_torch.predict.DeviceModelPack` or None."""
     if mesh is not None:
         raise NotImplementedError("mesh-distributed mselect is not ported "
                                   "yet (ROADMAP Queue 1: parallel/)")
-    if cfg.algo != "cd" or cfg.mtype != "slim":
+    if cfg.algo != "cd" or cfg.mtype not in ("slim", "oslim"):
         raise NotImplementedError(f"mselect with algo {cfg.algo!r}, mtype "
                                   f"{cfg.mtype!r} is not ported yet")
     dev = resolve_device(device)
@@ -103,7 +104,7 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
             l1, l2, model.nnz, ev.hr, ev.hr_head, ev.hr_tail, ev.arhr,
             t_learn + t_pred + t_metric, t_learn, t_pred, t_metric)
         if point_callback is not None:
-            point_callback(rec, model, pack)
+            point_callback(dict(rec, pack=pack), model)
         if ev.hr > best["bestHRHR"]:
             best.update(bestHRHR=ev.hr, bestARHR=ev.arhr,
                         bestl1HR=float(l1), bestl2HR=float(l2),

@@ -34,7 +34,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "slim_densify": [_P, _P, _P, _I, _I, _I, _I, _P, _LL, _P],
     "slim_pack": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
-    "slim_cd_sweep": [_P] * 10 + [_I] * 3 + [_P] * 5,
+    "slim_cd_sweep": [_P] * 12 + [_I] * 3 + [_P] * 6,
     "slim_cd_sweep_large": [_P] * 12 + [_I] * 3 + [_P] * 7,
     "slim_cd_sweep_panel": [_I] + [_P] * 12 + [_I] * 3 + [_P] * 7,
 }

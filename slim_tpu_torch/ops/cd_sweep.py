@@ -1,11 +1,13 @@
 """CD sweep kernels and the block-solve loops around them (port of
 slim_tpu/ops/pallas_cd.py).
 
-Three CUDA engines carry four entry points:
+Two CUDA engines carry four entry points:
 
-* :func:`cd_sweep` (csrc/sweep.cu) replaces ``_sweep_kernel`` /
-  ``pallas_cd_sweeps``: row-major (B, npad) operands, 128-wide chunks in
-  ``perm`` order, chunks with ``has == 0`` skipped.
+* :func:`cd_sweep` (csrc/sweep_panel.cu at a group width of 128) replaces
+  ``_sweep_kernel`` / ``pallas_cd_sweeps``: row-major (B, npad) operands,
+  128-wide chunks in ``perm`` order, chunks with ``has == 0`` skipped,
+  every chunk's deltas flushed to all of q before the next chunk starts,
+  in bf16x3 on the tensor cores as below.
 * :func:`cd_sweep_large` (csrc/sweep_large.cu) replaces
   ``_sweep_kernel_large_v4`` / ``pallas_cd_sweep_large_v4``:
   coordinate-major (npad, B) operands, ``GROUP``-wide groups in ``perm``
@@ -50,8 +52,15 @@ from . import _build
 from .cd_kernel import CHUNK, block_stats
 
 GROUP = 512      # coordinates per group of the large sweep
-Q_REFRESH = 8    # sweeps between exact q = G x refreshes (large sweep)
 K_FLUSH = 4      # groups per deferred-flush window (v4 and v3 sweeps)
+
+
+def q_refresh() -> int:
+    """Sweeps between exact q = x G refreshes of the group sweeps, read
+    from SLIM_PALLAS_QREFRESH at call time (default 8); 0 or less means
+    never refresh."""
+    n = int(os.environ.get("SLIM_PALLAS_QREFRESH", "8"))
+    return n if n > 0 else 1 << 30
 
 
 def split_bf16(G):
@@ -225,16 +234,22 @@ def _outputs(x, q, live):
             torch.empty_like(live), torch.zeros_like(live))
 
 
-def _launch(G, gj, act, x, q, live, diag2d, regs, perm, has, B, npad):
+def _launch(G, gj, act, x, q, live, diag2d, regs, perm, has):
+    """One call of csrc/sweep_panel.cu's whole-array sweep; the chunk's
+    deltas wait in bf16 halves (B, CHUNK)."""
+    B, npad = gj.shape
     xo, qo, lo, nit, dltx = _outputs(x, q, live)
-    dxbuf = torch.empty(CHUNK * B, dtype=torch.float32, device=x.device)
+    gh, gl = _split_of(G)
+    dh = torch.empty(B * CHUNK, dtype=torch.bfloat16, device=x.device)
+    dl = torch.empty_like(dh)
     perm, has = perm.contiguous(), has.contiguous()
     _build.check(_build.lib().slim_cd_sweep(
-        G.data_ptr(), gj.data_ptr(), act.data_ptr(), diag2d.data_ptr(),
-        xo.data_ptr(), qo.data_ptr(), live.data_ptr(), regs.data_ptr(),
-        perm.data_ptr(), has.data_ptr(), perm.numel(), B, npad,
-        dxbuf.data_ptr(), lo.data_ptr(), nit.data_ptr(), dltx.data_ptr(),
-        _build.stream_ptr(x.device)), "slim_cd_sweep")
+        G.data_ptr(), gh.data_ptr(), gl.data_ptr(), gj.data_ptr(),
+        act.data_ptr(), diag2d.data_ptr(), xo.data_ptr(), qo.data_ptr(),
+        live.data_ptr(), regs.data_ptr(), perm.data_ptr(), has.data_ptr(),
+        perm.numel(), B, npad, dh.data_ptr(), dl.data_ptr(), lo.data_ptr(),
+        nit.data_ptr(), dltx.data_ptr(), _build.stream_ptr(x.device)),
+        "slim_cd_sweep")
     return xo, qo, lo, nit, dltx
 
 
@@ -280,7 +295,7 @@ def cd_sweep(G, gj, act, x, q, live, diag2d, regs, perm, has):
     if gj.device.type != "cuda":
         raise ValueError(f"cd_sweep: unsupported device {gj.device}")
     cd_sweep.launches += 1
-    return _launch(G, gj, act, x, q, live, diag2d, regs, perm, has, B, npad)
+    return _launch(G, gj, act, x, q, live, diag2d, regs, perm, has)
 
 
 cd_sweep.launches = 0
@@ -435,9 +450,9 @@ def _solve_groups(variant, G, gj, diag, active, x0, caps, yty, l1v, l2v,
                   optTol, gen, shuffle, x0_zero):
     """Block solve on a group sweep: operands laid out once (coordinate-
     major for v4, row-major otherwise), q carried between sweeps and
-    refreshed exactly (a torch matmul outside the kernel) every Q_REFRESH
-    sweeps, active groups clustered first in the visit order except for
-    eager, stats from the carried q."""
+    refreshed exactly (a torch matmul outside the kernel) every
+    :func:`q_refresh` sweeps, active groups clustered first in the visit
+    order except for eager, stats from the carried q."""
     B, npad = gj.shape
     dev = gj.device
     ngroups = npad // GROUP
@@ -458,6 +473,7 @@ def _solve_groups(variant, G, gj, diag, active, x0, caps, yty, l1v, l2v,
 
     ql = torch.zeros_like(xl) if x0_zero else exact_q(xl)
     niters = torch.zeros(B, dtype=torch.float32, device=dev)
+    refresh = q_refresh()
     t = 0
     while t < tmax and bool((live > 0).any()):
         lv = live.reshape(-1)
@@ -472,7 +488,7 @@ def _solve_groups(variant, G, gj, diag, active, x0, caps, yty, l1v, l2v,
         regs = torch.stack([l1v, l2v, caps_f, torch.full_like(l1v, float(t)),
                             torch.full_like(l1v, float(optTol))],
                            dim=0 if tr else 1)
-        if t % Q_REFRESH == 0 and t > 0:
+        if t % refresh == 0 and t > 0:
             ql = exact_q(xl)
         xl, ql, liven, nit, dl = sweep(G, gjl, act, xl, ql, live, diag2d,
                                        regs.contiguous(),

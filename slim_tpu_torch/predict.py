@@ -6,8 +6,9 @@ can get fewer than N recommendations (predict.c:62).
 
 The model is densified on the device through the densify kernel (model
 rows as runs), each user block's histories likewise; the scores are one
-float32 ``torch.matmul`` (TF32 off), then the history mask and
-``torch.topk``.  Ids come back directly (no packed transfer).  Catalogues
+float32 ``torch.matmul`` (TF32 off), then the history mask and the top-N
+with ties broken by the lowest id (:func:`topk_lowest_id`, the order
+``lax.top_k`` gives).  Ids come back directly (no packed transfer).  Catalogues
 above SPARSE_PREDICT_THRESHOLD need the padded-sparse path, which is not
 ported yet.  A model the solver kept on the device
 (:class:`DeviceModelPack`) densifies there, with no upload.
@@ -100,6 +101,28 @@ class DeviceModelPack:
         self._W = None
 
 
+def topk_lowest_id(sc, k: int):
+    """``torch.topk(sc, k, dim=1)`` with equal scores ordered by the lowest
+    index first, as ``lax.top_k`` orders them (torch.topk leaves that order
+    unspecified, on the CPU and on the card).  The entries above the k-th
+    value are the top-k's own, ordered by (score desc, index asc); the
+    remaining slots take the lowest indices whose score equals the k-th."""
+    top_sc, top_id = torch.topk(sc, k, dim=1)
+    o = torch.argsort(top_id, dim=1)
+    top_sc, top_id = top_sc.gather(1, o), top_id.gather(1, o)
+    o = torch.sort(top_sc, dim=1, descending=True, stable=True).indices
+    top_sc, top_id = top_sc.gather(1, o), top_id.gather(1, o)
+    kth = top_sc[:, -1:]
+    n = sc.shape[1]
+    iota = torch.arange(n, dtype=torch.int32, device=sc.device)
+    low = torch.topk(torch.where(sc == kth, iota, n), k, dim=1,
+                     largest=False).values          # ascending
+    n_gt = (top_sc > kth).sum(dim=1, keepdim=True)
+    slot = torch.arange(k, device=sc.device)[None, :]
+    tie = low.gather(1, (slot - n_gt).clamp(min=0)).to(top_id.dtype)
+    return top_sc, torch.where(slot < n_gt, top_id, tie)
+
+
 def _user_block(npad: int, user_block: int) -> int:
     """Users per scored block: up to 4x ``user_block``, bounded so one
     score block stays within SCORE_BLOCK_BYTES."""
@@ -156,7 +179,7 @@ def predict_topn(model: CSR, hist: CSR, nrcmds: int = 10,
         sc = hdT.T @ W                                     # (users, npad)
         sc.masked_fill_(maskT.T, float("-inf"))
         ncand = (sc > 0).sum(dim=1)
-        top_sc, top_id = torch.topk(sc, nrcmds, dim=1)
+        top_sc, top_id = topk_lowest_id(sc, nrcmds)
         cnt = torch.clamp(ncand, max=nrcmds)
         ok = slot[None, :] < cnt[:, None]
         ids[users] = torch.where(ok, top_id, -1).to(torch.int32).cpu().numpy()

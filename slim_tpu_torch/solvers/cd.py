@@ -6,7 +6,7 @@ are relabelled by training frequency (rank r = the r-th most-rated item),
 so blocks are consecutive rank ranges with similar sweep caps and the
 active-set screen concentrates in the low ranks.  Wide catalogues solve
 each block in its union-active-set space (compact path), snapped to full
-width when the union covers more than COMPACT_FRAC of it.  Each
+width when the union covers more than :func:`compact_frac` of it.  Each
 solved block is harvested by count_over -> offsets -> the pack kernel ->
 host, and the model is assembled with scipy (estimate.c:570-593), keeping
 entries > 1e-7 (estimate.c:492-505).
@@ -21,6 +21,7 @@ previous learn over the same matrix (model selection).  With
 from __future__ import annotations
 
 import logging
+import os
 import time
 from collections import Counter
 
@@ -43,9 +44,13 @@ logger = logging.getLogger("slim_tpu_torch")
 
 EPSILON = 1e-7   # model nonzero threshold (reference def.h:14)
 COMPACT_BMAX = 1024  # widest block on the compact path
-# unions wider than this share of npad solve full width: the compact
-# gathers cost more than the 1-(K/npad)^2 of sweep work they save
-COMPACT_FRAC = 0.75
+
+
+def compact_frac() -> float:
+    """Unions wider than this share of npad solve full width (the compact
+    gathers cost more than the 1-(K/npad)^2 of sweep work they save):
+    SLIM_COMPACT_FRAC, read at call time, default 0.75."""
+    return float(os.environ.get("SLIM_COMPACT_FRAC", "0.75"))
 
 
 def bucket_npad(n: int) -> int:
@@ -67,11 +72,10 @@ def bucket_npad(n: int) -> int:
 def pick_impl(width: int, device: torch.device, compact_threshold: int) -> str:
     """Block-solve route for a coordinate width.  On the CPU the plain
     solve (ops/cd_kernel._cd_core).  On the card there is no VMEM budget
-    to split around: both sweep kernels take any B (the GS kernel holds
-    64 columns per 96 KB block of shared memory, the propagation tiles
-    128x128 outputs), so every block runs whole, on the row-major sweep up
-    to ``compact_threshold`` and above it on the wide-block sweep that
-    ``ops.cd_sweep.pick_large_variant`` chooses."""
+    to split around: every sweep kernel takes any B (one warp per column,
+    a few columns per block), so every block runs whole, on the row-major
+    whole-array sweep up to ``compact_threshold`` and above it on the
+    wide-block sweep that ``ops.cd_sweep.pick_large_variant`` chooses."""
     if device.type != "cuda":
         return "plain"
     if width <= compact_threshold or width % GROUP:
@@ -151,7 +155,8 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     cols = target item (estimate.c:570-593); stats carries loss/fit/nnz,
     the summed per-column sweeps, and ``phases`` (seconds per phase).
 
-    ``imodel`` warm-starts every column from that model (mtype slim);
+    ``imodel`` warm-starts every column from that model (mtype slim, and
+    oslim, whose ``ordered`` flag the reference never reads);
     ``warm_pack``, the retained pack of a learn over the same matrix,
     replaces its upload.  ``gram``: a precomputed (npad, npad) Gram in
     original item space on ``device`` (model selection shares one).
@@ -194,7 +199,7 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     g = g_raw.index_select(0, p_dev).index_select(1, p_dev)
     del g_raw
     caps_p = col_caps[p]
-    use_warm = imodel is not None and cfg.mtype == "slim"
+    use_warm = imodel is not None and cfg.mtype in ("slim", "oslim")
     runs = warm_runs(imodel, warm_pack, p_pad, posmap_pad, n, dev) \
         if use_warm else None
     acc = _PackAccum() if keep_device_model else None
@@ -209,9 +214,10 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         u = block_union_flags(g, nblocks, B, float(cfg.l1r))
         s_dev, cnt = compact_union_ids(u)
         del u
+        frac = compact_frac()
         for blk, c in enumerate(cnt.cpu().numpy()):
             K = min(bucket_npad(max(int(c), 1)), npad)
-            if K <= COMPACT_FRAC * npad and K < npad:
+            if K <= frac * npad and K < npad:
                 S = s_dev[blk, :K].contiguous()
                 union[blk] = (K, S, S.cpu().numpy())
         if dbg(cfg, SLIM_DBG_TIME):

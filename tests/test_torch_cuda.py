@@ -14,6 +14,7 @@ from slim_tpu_torch.ops import densify as D
 from slim_tpu_torch.ops import gram as G
 from slim_tpu_torch.ops import pack as P
 from slim_tpu_torch.ops.cd_kernel import _cd_core, per_col, screen
+from slim_tpu_torch.predict import predict_topn
 from slim_tpu_torch.types import CSR
 
 pytestmark = pytest.mark.cuda
@@ -56,6 +57,63 @@ def test_pack_ragged(dev, rng):
     Tpad = int(c.sum()) - 3          # the last entries fall off the end
     got, ref = P.pack(xd, od, 1e-7, Tpad), P.pack_plain(xd, od, 1e-7, Tpad)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _pack_case(dev, rng, B, K, cut=0, misalign=False):
+    """pack vs pack_plain, bit for bit, on a (B, K) block with ~4% entries
+    over eps and some just under it; ``cut`` entries fall off the end
+    (Tpad = T - cut); ``misalign`` puts x 4 bytes off a 16-byte boundary,
+    so the kernel takes its scalar loads."""
+    x = np.where(rng.random((B, K)) < 0.04, rng.random((B, K)) + 0.5, 0.0)
+    x[rng.random((B, K)) < 0.01] = 5e-8
+    x = x.astype(np.float32)
+    c = (x > np.float32(1e-7)).sum(1)
+    off = np.zeros(B, np.int32)
+    np.cumsum(c[:-1], out=off[1:])
+    flat = torch.zeros(B * K + 1, device=dev)
+    xd = flat[1:].view(B, K) if misalign else flat[:B * K].view(B, K)
+    xd.copy_(torch.from_numpy(x))
+    od = torch.from_numpy(off).to(dev)
+    Tpad = int(c.sum()) - cut
+    launches = P.pack.launches
+    got, ref = P.pack(xd, od, 1e-7, Tpad), P.pack_plain(xd, od, 1e-7, Tpad)
+    torch.cuda.synchronize()
+    assert P.pack.launches == launches + 1
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("B,K,cut,misalign", [(1024, 28672, 0, False),
+                                              (9, 300, 0, False),
+                                              (6, 301, 5, False),
+                                              (40, 8200, 50, False),
+                                              (8, 1024, 0, True)])
+def test_pack_matches_plain(dev, rng, B, K, cut, misalign):
+    """The main path's block; K = 300 (a multiple of 4, not of 16); K = 301
+    (scalar loads); a row just past one 8,192-column tile with Tpad below
+    T; an x off the 16-byte alignment."""
+    _pack_case(dev, rng, B, K, cut, misalign)
+
+
+def test_predict_tie_order_matches_cpu(dev, rng):
+    """A model of equal weights and binary histories: integer scores with
+    many ties, exact on both devices.  The card's top-10 equals the CPU
+    path's, lowest id first among equal scores (lax.top_k's order)."""
+    n, nusers = 300, 200
+    W = (rng.random((n, n)) < 0.05).astype(np.float32)
+    np.fill_diagonal(W, 0.0)
+    r, c = np.nonzero(W)
+    model = CSR.from_ijv(r, c, W[r, c], nrows=n, ncols=n)
+    h = (rng.random((nusers, n)) < 0.03).astype(np.float32)
+    hr, hc = np.nonzero(h)
+    hist = CSR.from_ijv(hr, hc, h[hr, hc], nrows=nusers, ncols=n).binarize()
+    ids_g, sc_g, cnt_g = predict_topn(model, hist, nrcmds=10, device=dev)
+    ids_c, sc_c, cnt_c = predict_topn(model, hist, nrcmds=10, device="cpu")
+    np.testing.assert_array_equal(cnt_g, cnt_c)
+    np.testing.assert_array_equal(sc_g, sc_c)
+    np.testing.assert_array_equal(ids_g, ids_c)
+    tied = (sc_c[:, 1:] == sc_c[:, :-1]) & (ids_c[:, 1:] >= 0)
+    assert tied.sum() > 100
+    assert np.all(ids_c[:, 1:][tied] > ids_c[:, :-1][tied])
 
 
 def _solve_inputs(dev, rng, n, npad, B):
@@ -143,6 +201,33 @@ def test_panel_sweep_kernel_windows(dev, rng, variant, npad, B, has):
     window at the main path's B; eager at a B off the 64- and 128-row
     tiles of its products."""
     _panel_sweep_case(dev, rng, variant, npad, B, has)
+
+
+@pytest.mark.parametrize("npad,B", [(384, 512), (4096, 512), (512, 300)])
+def test_row_sweep_kernel_matches_plain(dev, rng, npad, B):
+    """The whole-array sweep at the synth and ML-1M paths' shapes and at a
+    B off its blocks: every third chunk without work, ~10% dead columns.  x
+    atol 1e-4, q rel 1e-4, live and nit equal, one launch counted."""
+    Gm, gj, diag, act, caps, yty = _solve_inputs(dev, rng, npad - 90, npad,
+                                                 B)
+    nch = npad // 128
+    x = torch.where(act, torch.rand(act.shape, device=dev) * 0.05, 0.0)
+    live = (torch.rand(B, 1, device=dev) < 0.9).float()
+    regs = torch.tensor([0.3, 0.5, 50.0, 0.0, 1e-7], device=dev) \
+        .repeat(B, 1).contiguous()
+    perm = torch.randperm(nch, device=dev).to(torch.int32)
+    has = (torch.arange(nch, device=dev) % 3 != 1).to(torch.int32)
+    args = (Gm, gj, act.to(torch.int8), x, x @ Gm, live,
+            diag.reshape(1, npad).contiguous(), regs, perm, has)
+    launches = S.cd_sweep.launches
+    ref = S.cd_sweep_plain(*args)
+    qscale = max(1.0, ref[1].abs().max().item())
+    got = S.cd_sweep(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    assert (got[1] - ref[1]).abs().max().item() <= 1e-4 * qscale
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    assert S.cd_sweep.launches == launches + 1
 
 
 @pytest.mark.parametrize("npad,B,has", [(1024, 70, [0, 1]),

@@ -14,6 +14,17 @@ from slim_tpu_torch.ops import densify as D
 from slim_tpu_torch.ops import pack as P
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs, restored after it: the
+    suite runs several pytest workers on the same cores, and the plain
+    versions' many small ops stall when every worker runs a full pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rows(rng, npad, W, R, dup):
     lens = rng.integers(0, W + 1, R)
     lens[0] = W

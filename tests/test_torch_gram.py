@@ -17,6 +17,17 @@ from slim_tpu_torch.types import CSR
 from slim_tpu_torch.utils import resolve_device
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs, restored after it: the
+    suite runs several pytest workers on the same cores, and the plain
+    versions' many small ops stall when every worker runs a full pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port(m):
     return CSR.from_arrays(m.nrows, m.ncols, m.indptr, m.indices, m.data)
 

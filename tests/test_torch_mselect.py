@@ -24,8 +24,16 @@ TRN = os.path.join(DATA, "synth-train.csr")
 TST = os.path.join(DATA, "synth-test.csr")
 PAIRS = [(0.1, 0.5), (5.0, 0.5)]         # tests/test_mselect.py:18
 
-# several pytest workers share the cores (see test_torch_sweep_panel.py)
-torch.set_num_threads(1)
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs, restored after it: the
+    suite runs several pytest workers on the same cores, and the plain
+    versions' many small ops stall when every worker runs a full pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_mselect_pairs_matches_jax():
@@ -33,7 +41,8 @@ def test_mselect_pairs_matches_jax():
     point's retained pack densifies to its model."""
     checked = []
 
-    def cb(rec, model, pack):
+    def cb(rec, model):
+        pack = rec["pack"]
         ref = densify_model(model, npad=pack.npad, device="cpu")
         checked.append(float((pack.densify() - ref).abs().max()))
         pack.free_dense()
@@ -50,6 +59,27 @@ def test_mselect_pairs_matches_jax():
         assert g["niters"] > 0 and g["loss"] > 0
     for key in ("bestl1HR", "bestl2HR", "bestl1AR", "bestl2AR"):
         assert got[key] == want[key]
+
+
+def test_point_callback_takes_the_jax_arity():
+    """The callback the JAX package calls, ``cb(rec, model)``, runs in the
+    port; its record carries the retained pack, the returned records do
+    not; --ordered (mtype oslim) walks as slim."""
+    seen = []
+
+    def cb(rec, model):
+        seen.append((rec["l1r"], rec["nnz"] == model.nnz, rec["pack"]))
+
+    trn, tst = read_matrix(TRN), read_matrix(TST)
+    res = mselect_pairs(trn, tst, SlimConfig(ordered=1), PAIRS,
+                        point_callback=cb, device="cpu")
+    assert [s[0] for s in seen] == [p[0] for p in PAIRS]
+    assert all(s[1] and s[2] is not None for s in seen)
+    assert all("pack" not in r for r in res["results"])
+    want = jax_mselect_pairs(jax_read(TRN), jax_read(TST), JaxConfig(),
+                             PAIRS, point_callback=lambda rec, model: None)
+    for g, w in zip(res["results"], want["results"]):
+        assert abs(g["nnz"] - w["nnz"]) <= 0.01 * w["nnz"]
 
 
 def test_mselect_grid_walks_l2_inner_and_rejects_unported_modes():

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
+import torch
 
 from conftest import random_csr
 from slim_tpu.api import learn as jax_learn
@@ -14,6 +15,17 @@ from slim_tpu.types import CSR as JCSR
 from slim_tpu_torch import convert
 from slim_tpu_torch.predict import densify_model, predict_topn
 from slim_tpu_torch.types import CSR
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs, restored after it: the
+    suite runs several pytest workers on the same cores, and the plain
+    versions' many small ops stall when every worker runs a full pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _port(m):
@@ -45,6 +57,27 @@ def test_topn_ids_match_jax(learned, implicit):
     np.testing.assert_array_equal(cnt_t, cnt_j)
     np.testing.assert_array_equal(ids_t, ids_j)
     np.testing.assert_allclose(sc_t, sc_j, rtol=1e-5)
+
+
+def test_tied_scores_order_lowest_id_first():
+    """Equal model weights and binary histories tie many integer scores:
+    the same ids as the JAX package's lax.top_k, lowest id first among
+    equal scores (torch.topk leaves that order unspecified)."""
+    rng = np.random.default_rng(3)
+    n, nusers = 120, 60
+    W = (rng.random((n, n)) < 0.08).astype(np.float32)
+    np.fill_diagonal(W, 0.0)
+    r, c = np.nonzero(W)
+    model = JCSR.from_ijv(r, c, W[r, c], nrows=n, ncols=n)
+    hist = random_csr(rng, nusers, n, density=0.05).binarize()
+    ids_j, sc_j, cnt_j = _jax_topn(model, hist, 10)
+    ids_t, sc_t, cnt_t = predict_topn(_port(model), _port(hist), nrcmds=10,
+                                      device="cpu")
+    np.testing.assert_array_equal(cnt_t, cnt_j)
+    np.testing.assert_array_equal(sc_t, sc_j)
+    np.testing.assert_array_equal(ids_t, ids_j)
+    tied = (sc_t[:, 1:] == sc_t[:, :-1]) & (ids_t[:, 1:] >= 0)
+    assert tied.sum() > 50
 
 
 def test_history_excluded_and_short_lists(learned):

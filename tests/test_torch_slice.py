@@ -25,6 +25,17 @@ DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 SYNTH_LOSS, SYNTH_NNZ, SYNTH_HR, SYNTH_ARHR = 4730.0005, 10613, 0.230833, 0.135996
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs, restored after it: the
+    suite runs several pytest workers on the same cores, and the plain
+    versions' many small ops stall when every worker runs a full pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port(m):
     return CSR.from_arrays(m.nrows, m.ncols, m.indptr, m.indices, m.data)
 
@@ -61,6 +72,58 @@ def test_cli_learn_then_predict_reproduces_goldens(tmp_path, capsys):
                          out).groups()
     assert abs(float(hr) - SYNTH_HR) < 0.015
     assert abs(float(arhr) - SYNTH_ARHR) < 0.010
+
+
+def test_cli_ordered_learns_as_slim(tmp_path, capsys):
+    """--ordered with --nnbrs 0 is mtype oslim, which the reference learns
+    as slim (it never reads the flag): the synth goldens."""
+    mdl = str(tmp_path / "o.model")
+    assert slim_learn.main(["-ifmt=ijv", "--ordered", "-device=cpu",
+                            os.path.join(DATA, "synth-train.ijv"), mdl]) == 0
+    nnz, loss = re.search(r"model nnz: (\d+)\s+loss: (\S+)",
+                          capsys.readouterr().out).groups()
+    np.testing.assert_allclose(float(loss), SYNTH_LOSS, rtol=1e-4)
+    assert abs(int(nnz) - SYNTH_NNZ) <= SYNTH_NNZ * 0.01
+    with pytest.raises(NotImplementedError):        # ofslim: FSLIM
+        learn(_port(random_csr(np.random.default_rng(0), 20, 10)),
+              SlimConfig(nnbrs=5, ordered=1), device="cpu")
+
+
+def test_ordered_warm_start_matches_slim():
+    """oslim warm-starts from imodel as slim does (the JAX package's
+    cd.py:613): the same model from the same warm start."""
+    rng = np.random.default_rng(4)
+    mat = _port(random_csr(rng, 120, 60, density=0.15))
+    base = dict(l1r=0.5, l2r=1.0, block_size=32, shuffle=False)
+    m0, _ = learn(mat, SlimConfig(**base), device="cpu")
+    warm = dict(base, l1r=0.8)
+    m_s, s_s = learn(mat, SlimConfig(**warm), imodel=m0, device="cpu")
+    m_o, s_o = learn(mat, SlimConfig(ordered=1, **warm), imodel=m0,
+                     device="cpu")
+    assert s_o["niters"] == s_s["niters"] and m_o == m_s
+
+
+@pytest.mark.parametrize("frac,compact", [("1.0", True), ("0", False)])
+def test_compact_frac_knob_is_read_at_call_time(monkeypatch, frac, compact):
+    """SLIM_COMPACT_FRAC forces (1.0) or forbids (0) the compact blocks of
+    a compact-path learn; both reach the full-width objective (rtol 1e-4)
+    and nnz (±1%)."""
+    import slim_tpu_torch.solvers.cd as C
+
+    rng = np.random.default_rng(9)
+    mat = _port(random_csr(rng, 300, 700, density=0.01, implicit=True))
+    base = dict(l1r=0.0, l2r=1.0, block_size=64, shuffle=False)
+    m_full, s_full = learn(mat, SlimConfig(**base), device="cpu")
+    calls = []
+    real = C.cd_solve_block_compact
+    monkeypatch.setattr(C, "cd_solve_block_compact",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setenv("SLIM_COMPACT_FRAC", frac)
+    m_cmp, s_cmp = learn(mat, SlimConfig(compact_threshold=256, **base),
+                         device="cpu")
+    assert bool(calls) == compact
+    np.testing.assert_allclose(s_cmp["loss"], s_full["loss"], rtol=1e-4)
+    assert abs(m_cmp.nnz - m_full.nnz) <= 0.01 * m_full.nnz
 
 
 def test_cli_rejects_unported_modes(tmp_path):

@@ -18,9 +18,17 @@ from slim_tpu_torch.ops import cd_sweep as S
 from slim_tpu_torch.ops.cd_kernel import per_col
 
 NPAD = GROUP * 2 * K_FLUSH
-# the plain versions run many small ops: full thread pools under several
-# test workers slow them down many times
-torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs, restored after it: the
+    suite runs several pytest workers on the same cores, and the plain
+    versions' many small ops stall when every worker runs a full pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _problem(seed, B=32, l1r=0.3, npad=NPAD):

@@ -18,10 +18,17 @@ from slim_tpu.ops.pallas_cd import (GROUP, K_FLUSH, pallas_cd_sweep_large,
 from slim_tpu_torch.ops import cd_sweep as S
 from slim_tpu_torch.ops.cd_kernel import per_col
 
-# the suite runs several pytest workers on the same cores; the plain
-# versions run many small ops, which stall when every worker also runs a
-# full pool of intra-op threads
-torch.set_num_threads(1)
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs, restored after it: the
+    suite runs several pytest workers on the same cores, and the plain
+    versions' many small ops stall when every worker runs a full pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 NPAD = GROUP * 2 * K_FLUSH
 PLAIN = {"v3": S.cd_sweep_v3_plain, "eager": S.cd_sweep_eager_plain}
@@ -152,6 +159,38 @@ def test_group_sweeps_agree_at_the_optimum():
                                    rtol=1e-4)
     with pytest.raises(ValueError):
         S.solve_panel_core(*args, None, variant="v4")
+
+
+@pytest.mark.parametrize("value,want", [(None, 8), ("3", 3), ("0", 1 << 30),
+                                        ("-2", 1 << 30)])
+def test_q_refresh_knob(monkeypatch, value, want):
+    """SLIM_PALLAS_QREFRESH is read at call time; 0 or less never
+    refreshes (the JAX package's pallas_cd.py:1359-1361)."""
+    if value is None:
+        monkeypatch.delenv("SLIM_PALLAS_QREFRESH", raising=False)
+    else:
+        monkeypatch.setenv("SLIM_PALLAS_QREFRESH", value)
+    assert S.q_refresh() == want
+
+
+def test_solve_panel_core_without_q_refresh_agrees(monkeypatch):
+    """With SLIM_PALLAS_QREFRESH=0 the carried q is never recomputed; the
+    solve reaches the default's optimum (x atol 2e-4, objective rtol
+    1e-4)."""
+    rng, G, J, gj, active = _problem(13)
+    B = gj.shape[0]
+    diag = np.diagonal(G).copy()
+    x0 = np.where(active, rng.random(active.shape) * 0.1, 0.0) \
+        .astype(np.float32)
+    args = (t(G), t(gj), t(diag), t(active), t(x0),
+            t(np.full(B, 300, np.int32)), t(diag[J]), per_col(0.3, B, "cpu"),
+            per_col(0.5, B, "cpu"), 1e-10)
+    ref = S.solve_panel_core(*args, None, shuffle=False, variant="eager")
+    monkeypatch.setenv("SLIM_PALLAS_QREFRESH", "0")
+    got = S.solve_panel_core(*args, None, shuffle=False, variant="eager")
+    np.testing.assert_allclose(got[0].numpy(), ref[0].numpy(), atol=2e-4)
+    np.testing.assert_allclose(got[4].numpy(), ref[4].numpy(), rtol=1e-4)
+    assert int(got[1].max()) > 8          # the default refreshed on the way
 
 
 def _windowed_bf16x3(G, gj, act, x, q, live, diag2d, regs, perm, has, K):

@@ -14,8 +14,16 @@ from slim_tpu_torch.predict import DeviceModelPack, densify_model
 from slim_tpu_torch.solvers import cd
 from slim_tpu_torch.types import CSR
 
-# several pytest workers share the cores (see test_torch_sweep_panel.py)
-torch.set_num_threads(1)
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs, restored after it: the
+    suite runs several pytest workers on the same cores, and the plain
+    versions' many small ops stall when every worker runs a full pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _port(m):
