@@ -10,11 +10,13 @@ Phases (any failure exits non-zero, and no result line is printed):
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: densify (npad 28672), the whole-array row-major
      sweep (B 512 at npad 384, the synth path's, and 4096, the ML-1M
-     path's; timed with 2 and with 4 columns per GS block), the
-     coordinate-major sweep at B 1024,
-     npad 28672, one sweep with every group active (phase 4's shape) and
-     with 38 of 56 groups active, the row-major deferred-flush sweeps v3
-     and eager at the same two, pack (1024, 28672).  Each line gives the
+     path's), the coordinate-major sweep at B 1024, npad 28672, one sweep
+     with every group active (phase 4's shape) and with 38 of 56 groups
+     active, the row-major deferred-flush sweeps v3 and eager at the same
+     two, pack (1024, 28672); then phase 7's compact FSLIM blocks, each
+     column on its 50 cosine neighbours and ``has`` as the solver builds
+     it: the whole-array sweep at B 1024, npad 2048 and 4096, and the
+     coordinate-major sweep at B 1024, npad 8192.  Each line gives the
      max error, the kernel's and the plain version's times, the bound (the
      larger of the bytes the function must move over 3.35 TB/s and its
      operations over the peak of their type) with what sets it, the
@@ -31,8 +33,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      solves on the whole-array sweep; predict top-10 for every user.
      Objective and model nnz against the JAX package's result on the same
      matrix; the first 256 users' ids against the CPU path.
+  3c. FSLIM (nnbrs 50, cos, the JAX package's golden settings) at the
+     ML-1M shape, at full width and with compact_threshold 2048 (every
+     block on its FSLIM union): both against the JAX package's objective
+     and nnz on JAX-CPU, every column on at most 50 coordinates.
   4. the ML-20M synth workload at full scale (generated once, shared by
-     phases 4-6): learn -> predict_topn for every user; objective and model
+     phases 4-7): learn -> predict_topn for every user; objective and model
      nnz against the JAX package's result.  With --profile DIR this phase
      runs under torch.profiler; device time by kernel and the device idle
      share go to DIR/profile_ml20m.{txt,json}.
@@ -44,13 +50,32 @@ Phases (any failure exits non-zero, and no result line is printed):
      device pack must densify to its model.
   6. one cold learn with SLIM_PALLAS_V3=0 SLIM_PALLAS_V4=0 (the eager
      sweep), held to the same gates.
-  7. the kernels line.  Phases 3-6 (3b too) are each driven with every launch
-     counter set to 0 just before and read just after; each path must
-     launch its own kernels (PATH_KERNELS) and no other wide-block sweep.
-     A kernel's ``launches`` is the sum of its per-path counts
-     (``launches_by_path``) in the unit of ``launch_unit``; errors and
-     times come from phase 2, at the shape the path runs
-     (``ms``/``plain_ms``) and at the other shapes checked (``extra``).
+  7. FSLIM (nnbrs 50, cos) at full ML-20M scale on the compact path:
+     learn s, phases, sweeps, union widths; every column on at most 50
+     coordinates; union exactness (256 targets' full-width neighbour sets
+     inside their block's union, each support inside its set); the same
+     learn with SLIM_COMPACT_FRAC=0 (every block at npad 28672 on v4) to
+     the objective rtol 1e-4, nnz 1%.  Then the model served: dense
+     top-10 for every user; the dense, score-row and COO routes timed on
+     the first 16,384 users, the model on the card in each; for the first
+     4,096 users sparse and COO top-N against dense, and 1-vs-k and
+     candidate scores (held-out items of phase 5's test set + 100
+     negatives) on the dense, sparse and COO routes against each other
+     (ids equal but at the near ties ``checks.ranked_mismatches``
+     forgives).
+  8. the 262,144-item serving workload of scripts/predict_large_bench.py
+     (100,000 users): top-10 by sparse score rows (the only route: a dense
+     W would be 283 GB) and by COO, in agreement; the first 1,024 users
+     against a scipy oracle (``checks.topn_oracle_mismatches``); users/s
+     of both.
+  9. the kernels line.  Phases 3-8 (3b and 3c too) are each driven with
+     every launch counter set to 0 just before and read just after; each
+     path must launch its own kernels (PATH_KERNELS) and no other
+     wide-block sweep (phase 8: no kernel at all).  A kernel's
+     ``launches`` is the sum of its per-path counts (``launches_by_path``)
+     in the unit of ``launch_unit``; errors and times come from phase 2, at
+     the shape the path runs (``ms``/``plain_ms``) and at the other shapes
+     checked (``extra``).
 Each phase's wall time is printed.  The last line is
 {"ok": true, "device": {...}}.
 """
@@ -89,15 +114,38 @@ ML1M_SHAPE = (6040, 3706, 1_000_209)
 ML1M_OBJ, ML1M_NNZ = 388952.659, 886847
 ML1M_CFG = dict(optTol=1e-7, maxniters=10000, block_size=512)
 MSELECT_POINTS = [(2.0, 2.0), (1.0, 1.0)]
+# FSLIM: the JAX package's golden settings (tests/test_goldens.py:151-165);
+# at MovieLens-1M's shape its objective and model nnz on JAX-CPU (151
+# sweeps), from
+#   JAX_PLATFORMS=cpu python -c "from slim_tpu import api;
+#     from slim_tpu.config import SlimConfig;
+#     from slim_tpu.datagen import synth_implicit;
+#     print(api.learn(synth_implicit(6040, 3706, 1_000_209, seed=0),
+#       SlimConfig(l1r=1.0, l2r=1.0, nnbrs=50, simtype='cos', optTol=1e-7,
+#                  maxniters=10000, block_size=512))[1])"
+FSLIM_CFG = dict(l1r=1.0, l2r=1.0, nnbrs=50, simtype="cos")
+ML1M_FSLIM_OBJ, ML1M_FSLIM_NNZ = 414806.0915, 103225
+# the serving workload of scripts/predict_large_bench.py: 262,144 items,
+# 100,000 users, 50 model entries per row on zipf(1.3) columns, 40-entry
+# zipf(1.2) histories, seed 7 (npad 266,240: a dense W would be 283 GB)
+SERVE_SHAPE = dict(n=262_144, nusers=100_000, nnz_row=50, hlen=40, seed=7)
 # the kernels each driven path must launch: the synth set (npad 384) and
-# the ML-1M shape (npad 4096) solve on the whole-array row-major sweep,
-# every ML-20M block on the wide-block sweep its variant picks (v4 by
-# default, v3 and eager under the env switches)
+# the ML-1M shape (npad 4096) solve on the whole-array row-major sweep, and
+# so do both ML-1M FSLIM learns (full width, and compact with every union
+# at most 2,048 wide); every ML-20M block on the wide-block sweep its
+# variant picks (v4 by default, v3 and eager under the env switches); the
+# ML-20M FSLIM learns on the whole-array sweep (compact blocks whose union
+# is 4,096 or less) and on v4 (wider unions, and every block of the
+# SLIM_COMPACT_FRAC=0 learn); the 262k-item serving phase scores sparse
+# and launches none
 PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
                 "ml1m": ("densify", "cd_sweep", "pack"),
+                "ml1m_fslim": ("densify", "cd_sweep", "pack"),
                 "ml20m": ("densify", "cd_sweep_large", "pack"),
                 "mselect": ("densify", "cd_sweep_v3", "pack"),
-                "eager": ("densify", "cd_sweep_eager", "pack")}
+                "eager": ("densify", "cd_sweep_eager", "pack"),
+                "fslim": ("densify", "cd_sweep", "cd_sweep_large", "pack"),
+                "serve": ()}
 WIDE_SWEEPS = ("cd_sweep_large", "cd_sweep_v3", "cd_sweep_eager")
 _SWEEP_UNIT = ("sweeps: one wrapper call enqueues, per 128-wide chunk of "
                "the visit order, a group kernel (GS chain) and a "
@@ -242,11 +290,16 @@ def check_densify(dev, rng):
                       library_ms=library_ms)
 
 
-def _sweep_inputs(dev, rng, n, nrows, nnz, B, large):
+def _sweep_inputs(dev, rng, n, nrows, nnz, B, large, nnbrs=0):
     """A real Gram (densify + contraction on the card) of a synth matrix,
-    the screen of its first B columns, and one sweep's operands."""
+    its first B columns' active sets (the screen, or with ``nnbrs`` their
+    FSLIM neighbours, cos, as on the FSLIM path) and one sweep's operands.
+    ``has`` is random (about 80% of the positions active), or with
+    ``nnbrs`` the solver's own: the positions holding an active
+    coordinate of a live column, active groups first for a group sweep."""
     from slim_tpu_torch.datagen import synth_implicit
-    from slim_tpu_torch.ops.cd_kernel import per_col, screen
+    from slim_tpu_torch.ops.cd_kernel import (fslim_active_mask, per_col,
+                                              screen)
     from slim_tpu_torch.ops.cd_sweep import CHUNK, GROUP
     from slim_tpu_torch.ops.gram import compute_gram
     from slim_tpu_torch.solvers.cd import bucket_npad
@@ -258,12 +311,20 @@ def _sweep_inputs(dev, rng, n, nrows, nnz, B, large):
     J = torch.where(J < n, J, npad - 1)       # padded columns: zero column
     gj = G[:, J.long()].T.contiguous()
     l1 = per_col(1.0, B, dev)
-    act = screen(gj, J, l1)
+    act = fslim_active_mask(gj, torch.diagonal(G), J, n, nnbrs, "cos") \
+        if nnbrs else screen(gj, J, l1)
     width = GROUP if large else CHUNK
     npos = npad // width
     perm = torch.from_numpy(rng.permutation(npos).astype(np.int32)).to(dev)
     has = torch.from_numpy((rng.random(npos) < 0.8).astype(np.int32)).to(dev)
     live = torch.from_numpy((rng.random(B) < 0.9).astype(np.float32)).to(dev)
+    if nnbrs:
+        pos_any = (act.float() * live[:, None]).sum(dim=0) \
+            .reshape(npos, width).sum(dim=1) > 0
+        if large:
+            perm = perm[torch.sort((~pos_any[perm.long()]).int(),
+                                   stable=True).indices]
+        has = pos_any[perm.long()].to(torch.int32)
     x = torch.where(act, torch.from_numpy(
         rng.random((B, npad)).astype(np.float32) * 0.01).to(dev), 0.0)
     q = x @ G
@@ -273,6 +334,13 @@ def _sweep_inputs(dev, rng, n, nrows, nnz, B, large):
                         torch.full((B,), 1e-7, device=dev)], dim=1)
     diag2d = torch.diagonal(G).reshape(1, npad).contiguous()
     return G, gj, act.to(torch.int8), x, q, live, diag2d, regs, perm, has
+
+
+def _shape(B, npad, act, has):
+    """A sweep check's shape: B, npad, active positions, and active
+    coordinates per column."""
+    return (f"B={B} npad={npad} active={int(has.sum())}/{has.numel()} "
+            f"act_per_col={int(act.sum()) / B:.1f}")
 
 
 def _cmp_sweep(got, ref):
@@ -303,7 +371,7 @@ def check_sweep(ops):
                 max_abs_err=ex, q_rel_err=eq,
                 ms=cuda_ms(lambda: S.cd_sweep(*args), 20),
                 plain_ms=cuda_ms(lambda: S.cd_sweep_plain(*args), 1),
-                shape=f"B={B} npad={npad} active={na}/{has.numel()}",
+                shape=_shape(B, npad, args[2], has),
                 tol="x 1e-4, q 1e-4 rel")
     # per active chunk: its G rows, the propagation and the GS triangle
     return with_bound(line, 4.0 * 128 * npad * na + B * npad * 21.0,
@@ -340,8 +408,7 @@ def check_sweep_large(ops, all_active):
                 max_abs_err=ex, q_rel_err=eq,
                 ms=cuda_ms(lambda: cd_sweep_large(*args), 3),
                 plain_ms=cuda_ms(lambda: cd_sweep_large_plain(*args), 1),
-                shape=f"B={B} npad={npad} active="
-                      f"{int(has.sum())}/{has.numel()}",
+                shape=_shape(B, npad, args[2], has),
                 tol="x 1e-4, q 1e-4 rel")
     return with_bound(line, *group_sweep_work(npad, B, has.tolist()))
 
@@ -421,8 +488,7 @@ def check_sweep_panel(ops, variant, all_active):
                max_abs_err=ex, q_rel_err=eq,
                ms=cuda_ms(lambda: kern(*args), 3),
                plain_ms=cuda_ms(lambda: plain(*args), 1),
-               shape=f"B={B} npad={npad} active="
-                     f"{int(has.sum())}/{has.numel()}",
+               shape=_shape(B, npad, args[2], has),
                tol="x 1e-4, q 1e-4 rel")
     return with_bound(out, *group_sweep_work(npad, B, has.tolist()))
 
@@ -503,10 +569,31 @@ def _head_rows(mat, n):
                            None if mat.data is None else mat.data[:end])
 
 
+def check_agree(tag, got, ref, rtol=1e-5):
+    """Two ranked results (ids, scores, counts) of two routes: the same
+    counts, scores within ``rtol``, ids equal but at the near ties
+    ``checks.ranked_mismatches`` forgives.  The users with an id it does
+    not forgive are printed before the check fails."""
+    from slim_tpu_torch.checks import ranked_mismatches
+
+    check(np.array_equal(got[2], ref[2]), f"{tag}: counts differ")
+    check(np.allclose(got[1], ref[1], rtol=rtol, atol=1e-6),
+          f"{tag}: scores differ")
+    differ, off_near = ranked_mismatches(*got[:2], *ref, rtol=rtol)
+    if off_near:
+        for u in np.nonzero((got[0] != ref[0]).any(axis=1))[0][:4]:
+            print(f"{tag}: user {u} ids {got[0][u].tolist()} vs "
+                  f"{ref[0][u].tolist()}, scores {got[1][u].tolist()} vs "
+                  f"{ref[1][u].tolist()}", flush=True)
+    check(off_near == 0, f"{tag}: {off_near} ids differ off near ties")
+    return dict(ids_differ=differ, ids_differ_off_near_ties=off_near)
+
+
 def run_ml1m(dev):
     """Phase 3b: a learn at MovieLens-1M's shape, every block on the
     whole-array sweep (npad 4096), then top-10 for every user."""
     from slim_tpu_torch import SlimConfig, learn
+    from slim_tpu_torch.checks import ranked_mismatches
     from slim_tpu_torch.datagen import synth_implicit
     from slim_tpu_torch.ops import cd_sweep as S
     from slim_tpu_torch.predict import predict_topn
@@ -522,17 +609,13 @@ def run_ml1m(dev):
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
     # the first 256 users against the CPU path: the same counts, scores
-    # within 1e-5 rel, and the same ids except where two neighbouring CPU
-    # scores differ by under 1e-5 rel (f32 sums in another order may swap
+    # within 1e-5 rel, and the same ids except at the near ties that
+    # checks.ranked_mismatches forgives (f32 sums in another order may swap
     # such a pair); exact ties must come in the same (lowest-id) order
     ids_c, sc_c, cnt_c = predict_topn(model, _head_rows(trn, 256),
                                       nrcmds=10, device="cpu")
-    mism = ids[:256] != ids_c
-    lo, hi = sc_c[:, 1:], sc_c[:, :-1]
-    close = np.isclose(lo, hi, rtol=1e-5, atol=0) & (lo != hi)
-    near = np.zeros_like(mism)
-    near[:, 1:] |= close
-    near[:, :-1] |= close
+    differ, off_near = ranked_mismatches(ids[:256], sc[:256], ids_c, sc_c,
+                                         cnt_c)
     solve_s = stats["phases"]["solve"]
     out = dict(nrows=trn.nrows, ncols=trn.ncols, nnz=trn.nnz,
                learn_s=stats["learn_s"], phases=stats["phases"],
@@ -541,8 +624,7 @@ def run_ml1m(dev):
                niters=stats["niters"], objective=stats["loss"],
                model_nnz=stats["nnz"], predict_s=pred_s,
                predict_users_per_s=trn.nrows / pred_s,
-               ids_differ=int(mism.sum()), ids_differ_off_near_ties=int(
-                   (mism & ~near).sum()))
+               ids_differ=differ, ids_differ_off_near_ties=off_near)
     print("ml1m:", json.dumps(out))
     check(ids.shape == (trn.nrows, 10) and np.all(ids < trn.ncols),
           "ml1m predict output malformed")
@@ -555,6 +637,276 @@ def run_ml1m(dev):
           f"ML-1M objective {stats['loss']}")
     check(abs(stats["nnz"] - ML1M_NNZ) <= 0.01 * ML1M_NNZ,
           f"ML-1M model nnz {stats['nnz']}")
+    return out
+
+
+def launch_wrappers():
+    """The kernel wrappers whose ``launches`` counters the driven paths
+    are held to, by kernel name."""
+    from slim_tpu_torch.ops import cd_sweep as S
+    from slim_tpu_torch.ops.densify import densify
+    from slim_tpu_torch.ops.pack import pack
+
+    return {"densify": densify, "cd_sweep": S.cd_sweep,
+            "cd_sweep_large": S.cd_sweep_large, "cd_sweep_v3": S.cd_sweep_v3,
+            "cd_sweep_eager": S.cd_sweep_eager, "pack": pack}
+
+
+def _learn_record(stats, counts0):
+    """The printed record of one learn, with the launches it added to
+    ``counts0`` (a snapshot of the counters)."""
+    counts = {k: w.launches - counts0[k]
+              for k, w in launch_wrappers().items()}
+    return dict(learn_s=stats["learn_s"], phases=stats["phases"],
+                sweeps=stats["sweeps"], niters=stats["niters"],
+                union_widths=stats.get("union_widths"),
+                objective=stats["loss"], model_nnz=stats["nnz"],
+                launches={k: v for k, v in counts.items() if v})
+
+
+def _fslim_learn(dev, trn, cfg):
+    from slim_tpu_torch import learn
+
+    counts0 = {k: w.launches for k, w in launch_wrappers().items()}
+    model, stats = learn(trn, cfg, device=dev)
+    col_nnz = np.diff(model.transpose().indptr)
+    check(col_nnz.max() <= cfg.nnbrs,
+          f"FSLIM column with {col_nnz.max()} nonzeros > {cfg.nnbrs}")
+    return model, stats, _learn_record(stats, counts0)
+
+
+def _check_same_fit(tag, stats, obj, nnz):
+    check(abs(stats["loss"] - obj) <= 1e-4 * obj,
+          f"{tag} objective {stats['loss']} vs {obj}")
+    check(abs(stats["nnz"] - nnz) <= 0.01 * nnz,
+          f"{tag} model nnz {stats['nnz']} vs {nnz}")
+
+
+def run_ml1m_fslim(dev):
+    """Phase 3c: FSLIM (nnbrs 50, cos) at MovieLens-1M's shape, full width
+    (npad 4096, the whole-array sweep) and with compact_threshold 2048
+    (every block on its FSLIM union), both against the JAX package's
+    result on JAX-CPU; every column on at most 50 coordinates."""
+    from slim_tpu_torch import SlimConfig
+    from slim_tpu_torch.datagen import synth_implicit
+
+    trn = synth_implicit(*ML1M_SHAPE, seed=0)
+    out = {}
+    for tag, extra in (("full", {}), ("compact", dict(compact_threshold=2048))):
+        cfg = SlimConfig(dbglvl=2, **FSLIM_CFG, **ML1M_CFG, **extra)
+        _, stats, out[tag] = _fslim_learn(dev, trn, cfg)
+        _check_same_fit(f"ML-1M FSLIM {tag}", stats, ML1M_FSLIM_OBJ,
+                        ML1M_FSLIM_NNZ)
+    print("ml1m_fslim:", json.dumps(out))
+    check(out["compact"]["union_widths"] and max(
+        out["compact"]["union_widths"]) < 4096,
+        "ML-1M FSLIM compact learn solved no compact block")
+    return out
+
+
+def check_unions(dev, trn, model, stats, ntargets=256):
+    """Union exactness of an FSLIM learn on the compact path: for targets
+    spread over the blocks, the full-width top-nnbrs set (the plain
+    ``fslim_active_mask`` over the rank-space Gram, on the card) lies in
+    the block's union, and the model column's support lies in that set."""
+    from slim_tpu_torch.ops.cd_kernel import fslim_active_mask
+    from slim_tpu_torch.ops.gram import compute_gram
+    from slim_tpu_torch.solvers.cd import COMPACT_BMAX, bucket_npad
+
+    n = trn.ncols
+    npad = bucket_npad(n)
+    B = min(ML20M_CFG["block_size"], COMPACT_BMAX)
+    p = np.argsort(-trn.col_nnz(), kind="stable")     # the solver's ranks
+    p_d = torch.from_numpy(np.concatenate([p, np.arange(n, npad)])).to(dev)
+    G = compute_gram(trn, "device", pad_to=npad, device=dev)
+    G = G.index_select(0, p_d).index_select(1, p_d)
+    ranks = np.linspace(0, n - 1, ntargets).round().astype(np.int64)
+    J = torch.from_numpy(ranks.astype(np.int32)).to(dev)
+    mask = fslim_active_mask(G[:, J.long()].T.contiguous(), torch.diagonal(G),
+                             J, n, FSLIM_CFG["nnbrs"], FSLIM_CFG["simtype"])
+    mask = mask.cpu().numpy()
+    del G
+    posmap = np.empty(n, np.int64)
+    posmap[p] = np.arange(n)
+    csc = model.transpose()
+    out = dict(targets=ntargets, in_compact_blocks=0, outside_union=0,
+               support_outside_top=0)
+    for t, r in enumerate(ranks):
+        top = np.nonzero(mask[t])[0]
+        S = stats["unions"].get(int(r) // B)
+        if S is not None:
+            out["in_compact_blocks"] += 1
+            out["outside_union"] += int(np.setdiff1d(top, S).size)
+        j = p[r]
+        sup = posmap[csc.indices[csc.indptr[j]:csc.indptr[j + 1]]]
+        out["support_outside_top"] += int(np.setdiff1d(sup, top).size)
+    check(out["outside_union"] == 0 and out["support_outside_top"] == 0,
+          f"FSLIM unions not exact: {out}")
+    return out
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _candidates(tst, nusers, ncols, nnegs=100):
+    """(nusers, C) candidates: each user's held-out items, -1 padded, then
+    ``nnegs`` negatives drawn with default_rng(3)."""
+    rows = tst.indptr[:nusers + 1]
+    cnt = np.diff(rows)
+    held = np.full((nusers, max(int(cnt.max()), 1)), -1, np.int32)
+    r = np.repeat(np.arange(nusers), cnt)
+    held[r, np.arange(rows[-1]) - rows[:-1][r]] = tst.indices[:rows[-1]]
+    neg = np.random.default_rng(3).integers(0, ncols, (nusers, nnegs))
+    return np.concatenate([held, neg.astype(np.int32)], axis=1)
+
+
+def run_fslim(dev, trn, nhead=4096, ntime=16384):
+    """Phase 7: FSLIM at full ML-20M scale on the compact path, its union
+    exactness, the same learn with every union snapped to full width
+    (SLIM_COMPACT_FRAC=0, every block on v4 at npad 28672), then the model
+    served: dense top-N for every user; the dense, score-row and COO top-N
+    timed on the first ``ntime`` users with the model on the card; for
+    the first ``nhead`` users the sparse and COO top-N, 1-vs-k and
+    candidate scores on every route, held to the dense route."""
+    from slim_tpu_torch import SlimConfig
+    from slim_tpu_torch.datagen import synth_implicit
+    from slim_tpu_torch.predict import (densify_model,
+                                        predict_candidate_scores,
+                                        predict_topn, predict_topn_1vsk)
+    from slim_tpu_torch.solvers.cd import bucket_npad
+
+    cfg = SlimConfig(dbglvl=2, **FSLIM_CFG, **ML20M_CFG)
+    model, stats, out = _fslim_learn(dev, trn, cfg)
+    out["unions"] = check_unions(dev, trn, model, stats)
+    with env(SLIM_COMPACT_FRAC="0"):
+        _, st_full, out["full_width"] = _fslim_learn(dev, trn, cfg)
+    check(set(st_full["union_widths"]) == {bucket_npad(trn.ncols)},
+          f"SLIM_COMPACT_FRAC=0 left unions {st_full['union_widths']}")
+    _check_same_fit("ML-20M FSLIM full width", st_full, stats["loss"],
+                    stats["nnz"])
+    print("fslim learn:", json.dumps(out))
+
+    serve = {}
+    dense, t = _timed(lambda: predict_topn(model, trn, nrcmds=10,
+                                           device=dev))
+    serve["dense_all"] = dict(users=trn.nrows, s=t, users_per_s=trn.nrows / t)
+    W, serve["dense_model_s"] = _timed(lambda: densify_model(model,
+                                                             device=dev))
+    serve["same_users"] = route_times(model, _head_rows(trn, ntime), W, dev)
+    head = _head_rows(trn, nhead)
+    ref = tuple(a[:nhead] for a in dense)
+    routes = {"dense": dict(sparse=False, W_dev=W),
+              "sparse": dict(sparse=True), "coo": dict(sparse=True)}
+    cand = _candidates(synth_implicit(trn.nrows, trn.ncols, trn.nrows,
+                                      seed=1), nhead, trn.ncols)
+    first = {}
+    for route, kw in routes.items():
+        with env(SLIM_PREDICT_COO_NPAD="1" if route == "coo" else "0"):
+            rec = {}
+            if route != "dense":
+                got, t = _timed(lambda: predict_topn(model, head, nrcmds=10,
+                                                     device=dev, **kw))
+                rec["topn"] = dict(s=t, users_per_s=nhead / t,
+                                   **check_agree(f"{route} top-N", got, ref))
+            one, t = _timed(lambda: predict_topn_1vsk(
+                model, head, cand, nrcmds=10, device=dev, **kw))
+            rec["1vsk"] = dict(s=t, users_per_s=nhead / t)
+            cs, t = _timed(lambda: predict_candidate_scores(
+                model, head, cand, device=dev, **kw))
+            rec["cand"] = dict(s=t, users_per_s=nhead / t)
+        if route == "dense":
+            first = dict(one=one, cs=cs)
+        else:
+            rec["1vsk"].update(check_agree(f"{route} 1-vs-k", one,
+                                           first["one"]))
+            check(np.array_equal(cs[1], first["cs"][1])
+                  and np.allclose(cs[0], first["cs"][0], rtol=1e-5,
+                                  atol=1e-6),
+                  f"{route} candidate scores differ from dense")
+        serve[route] = rec
+    del W
+    check(dense[0].shape == (trn.nrows, 10) and np.all(dense[0] < trn.ncols),
+          "FSLIM predict output malformed")
+    print("fslim serve:", json.dumps(serve))
+    return dict(out, serve=serve)
+
+
+def route_times(model, users, W, dev, rounds=2):
+    """Seconds and users/s of top-10 for ``users`` on the dense route (the
+    resident ``W``) and on the two sparse routes, ``rounds`` rounds in
+    turns.  The first round uploads the histories and the sparse routes'
+    model rows, so no route uploads anything in a later round."""
+    from slim_tpu_torch.predict import predict_topn
+
+    secs = {"dense": [], "rows": [], "coo": []}
+    for _ in range(rounds):
+        for route, ts in secs.items():
+            kw = dict(W_dev=W, sparse=False) if route == "dense" \
+                else dict(sparse=True)
+            with env(SLIM_PREDICT_COO_NPAD="1" if route == "coo" else "0"):
+                _, t = _timed(lambda: predict_topn(model, users, nrcmds=10,
+                                                   device=dev, **kw))
+            ts.append(t)
+    return dict(users=users.nrows, **{
+        r: dict(s=ts, users_per_s=[users.nrows / t for t in ts])
+        for r, ts in secs.items()})
+
+
+def serve_workload():
+    """scripts/predict_large_bench.py's serving workload (SERVE_SHAPE),
+    built here with the port's CSR: (model, histories)."""
+    from slim_tpu_torch.types import CSR
+
+    n, nusers = SERVE_SHAPE["n"], SERVE_SHAPE["nusers"]
+    rng = np.random.default_rng(SERVE_SHAPE["seed"])
+    mr = np.repeat(np.arange(n), SERVE_SHAPE["nnz_row"])
+    mc = (rng.zipf(1.3, mr.size * 2) % n)[:mr.size]
+    mv = rng.random(mr.size, dtype=np.float32) + 0.01
+    model = CSR.from_ijv(mr, mc, mv, nrows=n, ncols=n)
+    hr = np.repeat(np.arange(nusers), SERVE_SHAPE["hlen"])
+    hc = (rng.zipf(1.2, hr.size * 2) % n)[:hr.size]
+    hist = CSR.from_ijv(hr, hc, np.ones(hr.size, np.float32),
+                        nrows=nusers, ncols=n).binarize()
+    return model, hist
+
+
+def run_serve(dev, noracle=1024):
+    """Phase 8: the padded-sparse route where it is the only route: top-10
+    for all 100,000 users of the 262,144-item serving workload by score
+    rows (the default there) and by COO, each twice in turns (the first
+    call also uploads the model and histories); the two agree (ids equal
+    but at near ties) and the first ``noracle`` users match a scipy
+    oracle."""
+    from slim_tpu_torch.checks import topn_oracle_mismatches
+    from slim_tpu_torch.predict import predict_topn
+
+    (model, hist), gen_s = _timed(serve_workload)
+    secs = {"rows": [], "coo": []}
+    for route in ("rows", "coo", "rows", "coo"):     # in turns
+        with env(SLIM_PREDICT_COO_NPAD="1" if route == "coo" else "0"):
+            res, t = _timed(lambda: predict_topn(model, hist, nrcmds=10,
+                                                 device=dev))
+        secs[route].append(t)
+        if route == "rows":
+            rows = res
+        else:
+            agree = check_agree("serve COO vs score rows", res, rows)
+    bad = topn_oracle_mismatches(model, _head_rows(hist, noracle),
+                                 tuple(a[:noracle] for a in rows))
+    out = dict(nitems=model.ncols, nusers=hist.nrows, model_nnz=model.nnz,
+               hist_nnz=hist.nnz, datagen_s=gen_s,
+               **{r: dict(s=ts, users_per_s=[hist.nrows / t for t in ts])
+                  for r, ts in secs.items()},
+               oracle_users=noracle, oracle_mismatch=bad, **agree)
+    print("serve:", json.dumps(out))
+    check(bad == 0, f"{bad} users differ from the scipy oracle")
+    check(rows[0].shape == (hist.nrows, 10) and np.all(rows[0] < model.ncols)
+          and np.all(rows[2] >= 0), "serve output malformed")
     return out
 
 
@@ -688,10 +1040,7 @@ def main(argv=None):
     import slim_tpu_torch  # noqa: F401  (fails outside a checkout)
     from slim_tpu_torch.datagen import synth_ml20m
     from slim_tpu_torch.ops import _build
-    from slim_tpu_torch.ops import cd_sweep as S
-    from slim_tpu_torch.ops.densify import densify
     from slim_tpu_torch.ops.gram import pin_f32
-    from slim_tpu_torch.ops.pack import pack
 
     pin_f32()
     dev = torch.device("cuda", 0)
@@ -718,15 +1067,24 @@ def main(argv=None):
            for n in (300, 4000)]
     checks += [check_sweep(row[0]), check_sweep(row[1]),
                check_sweep_large(large, all_active=True),
-              check_sweep_large(large, all_active=False),
-              check_sweep_panel(large, "v3", all_active=False),
-              check_sweep_panel(large, "v3", all_active=True),
-              check_sweep_panel(large, "eager", all_active=False),
-              check_sweep_panel(large, "eager", all_active=True),
-              check_pack(dev, rng)]
+               check_sweep_large(large, all_active=False),
+               check_sweep_panel(large, "v3", all_active=False),
+               check_sweep_panel(large, "v3", all_active=True),
+               check_sweep_panel(large, "eager", all_active=False),
+               check_sweep_panel(large, "eager", all_active=True),
+               check_pack(dev, rng)]
     if args.profile is not None:
         profile_sweep(large, row[1], args.profile)
     del large, row
+    # phase 7's compact FSLIM blocks: B 1024 on unions of up to 4,096 (row
+    # 1) and of 6,144-8,192 (row 4), about 50 active coordinates a column
+    for n in (2000, 4000):
+        checks.append(check_sweep(_sweep_inputs(
+            dev, rng, n, 4 * n, 40 * n, 1024, large=False,
+            nnbrs=FSLIM_CFG["nnbrs"])))
+    checks.append(check_sweep_large(_sweep_inputs(
+        dev, rng, 8000, 32000, 320_000, 1024, large=True,
+        nnbrs=FSLIM_CFG["nnbrs"]), all_active=False))
     for c in checks:
         print("check:", json.dumps(c), flush=True)
     lap("kernels")
@@ -735,17 +1093,17 @@ def main(argv=None):
 
     trn = synth_ml20m(seed=0)
     lap("datagen")
-    wrappers = {"densify": densify, "cd_sweep": S.cd_sweep,
-                "cd_sweep_large": S.cd_sweep_large,
-                "cd_sweep_v3": S.cd_sweep_v3,
-                "cd_sweep_eager": S.cd_sweep_eager, "pack": pack}
+    wrappers = launch_wrappers()
     results = {}
     drives = (("synth", lambda: run_synth(dev)),
               ("ml1m", lambda: run_ml1m(dev)),
+              ("ml1m_fslim", lambda: run_ml1m_fslim(dev)),
               ("ml20m", lambda: run_ml20m(dev, trn, args.profile)),
               ("mselect", lambda: run_mselect(dev, trn,
                                               results["ml20m"]["niters"])),
-              ("eager", lambda: run_eager(dev, trn)))
+              ("eager", lambda: run_eager(dev, trn)),
+              ("fslim", lambda: run_fslim(dev, trn)),
+              ("serve", lambda: run_serve(dev)))
     by_path = {}
     for path, drive in drives:
         for w in wrappers.values():
@@ -759,6 +1117,8 @@ def main(argv=None):
         stray = [k for k in WIDE_SWEEPS
                  if k not in PATH_KERNELS[path] and counts[k]]
         check(not stray, f"{path} path launched {stray}: {counts}")
+        check(PATH_KERNELS[path] or not any(counts.values()),
+              f"{path} path launched a kernel: {counts}")
         lap(path)
 
     by_name = {}
@@ -768,8 +1128,7 @@ def main(argv=None):
         base = c["name"].split("@")[0]
         e = by_name.get(base)
         if e is None:
-            per_path = {p: n[base] for p, n in by_path.items()
-                        if base in PATH_KERNELS[p]}
+            per_path = {p: n[base] for p, n in by_path.items() if n[base]}
             by_name[base] = dict(
                 name=base, route=c["route"], source=c["source"],
                 replaces=c["replaces"], launches=sum(per_path.values()),

@@ -25,7 +25,8 @@ def learn(train: CSR, cfg: Optional[SlimConfig] = None,
           keep_device_model: bool = False, device=None):
     """Estimate a SLIM model with CD on ``device`` (default: the card; with
     none it raises, a CPU run passes ``device="cpu"``).  Returns (model CSR, stats dict); stats adds setup_s,
-    learn_s and total_s to the solver's.
+    learn_s and total_s to the solver's.  Every mtype learns: oslim as
+    slim and ofslim as fslim, since the reference never reads ``ordered``.
 
     ``imodel`` warm-starts the solve; ``gram`` is a precomputed Gram in
     item space on ``device``; ``keep_device_model=True`` returns the model
@@ -36,10 +37,6 @@ def learn(train: CSR, cfg: Optional[SlimConfig] = None,
     cfg = cfg or SlimConfig()
     if cfg.algo != "cd":
         raise NotImplementedError(f"algo {cfg.algo!r} is not ported yet")
-    # oslim learns as slim: the reference never reads ``ordered``
-    if cfg.mtype not in ("slim", "oslim"):
-        raise NotImplementedError(f"mtype {cfg.mtype!r} (FSLIM) is not "
-                                  "ported yet")
     t_total = time.perf_counter()
     tmat = train.infer_ncols()     # CreateTrainingMatrix, setup.c:109-135
     t_setup = time.perf_counter() - t_total
@@ -57,10 +54,11 @@ def learn(train: CSR, cfg: Optional[SlimConfig] = None,
 
 
 def get_topn(model: CSR, hist: CSR, nrcmds: int = 10, W_dev=None,
-             device=None):
-    """Top-N for every user row of ``hist`` (SLIM_GetTopN batched)."""
+             sparse=None, device=None):
+    """Top-N for every user row of ``hist`` (SLIM_GetTopN batched);
+    ``sparse`` pins the dense (False) or sparse (True) scoring route."""
     return predict_topn(model, hist, nrcmds=nrcmds, W_dev=W_dev,
-                        device=device)
+                        sparse=sparse, device=device)
 
 
 def write_model(model: CSR, path: str) -> None:

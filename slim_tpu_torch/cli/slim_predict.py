@@ -1,8 +1,10 @@
 """slim_predict: top-N prediction + evaluation.
 
 CLI parity with src/programs/slim_predict.c: positionals
-``model-file old-file [test-file]``.  Prints hr / hr_head / hr_tail /
-arhr.  The neg-file mode (slim_predict.c:110-165) is not ported yet.
+``model-file old-file [test-file] [neg-file]``; with a neg-file, all items
+are scored, the list is intersected with the pos∪neg candidate set, tie
+order among equal scores is randomised, and the list is truncated to
+nrcmds (slim_predict.c:110-165).  Prints hr / hr_head / hr_tail / arhr.
 """
 
 from __future__ import annotations
@@ -13,9 +15,50 @@ import numpy as np
 
 from ..eval import determine_head_tail, evaluate_topn
 from ..io.readers import read_matrix
-from ..predict import predict_topn
+from ..predict import predict_candidate_scores, predict_topn
 from .common import add_common_matrix_flags, add_device_flag, banner, \
     errexit_main, make_parser, normalise_argv, setup_logging
+
+
+def negfile_topn(model, oldmat, tstmat, negmat, nrcmds, device):
+    """Neg-file mode (slim_predict.c:110-165): each user's candidates are
+    pos (test) ∪ neg, deduplicated; a candidate keeps its all-items score
+    (history excluded) or 0; equal scores come in a random order (a stable
+    sort by score with a random secondary key, ``default_rng(0)``, for the
+    reference's double shuffle); the list is truncated to min(nrcmds,
+    the user's scored-item count, its candidate count)."""
+    nu = oldmat.nrows
+    t_ptr = tstmat.indptr if tstmat else np.zeros(nu + 1, np.int64)
+    t_ind = tstmat.indices if tstmat else np.zeros(0, np.int32)
+    n_ptr, n_ind = negmat.indptr, negmat.indices
+    t_cnt, n_cnt = np.diff(t_ptr), np.diff(n_ptr)
+    C = max(int((t_cnt + n_cnt).max(initial=1)), 1)
+    cand = np.full((nu, C), -1, np.int32)
+    rows_t = np.repeat(np.arange(nu), t_cnt)
+    cand[rows_t, np.arange(len(t_ind)) - np.repeat(t_ptr[:-1], t_cnt)] = t_ind
+    rows_n = np.repeat(np.arange(nu), n_cnt)
+    cand[rows_n, t_cnt[rows_n] + np.arange(len(n_ind))
+         - np.repeat(n_ptr[:-1], n_cnt)] = n_ind
+    # dedup per row: sort descending (-1 padding last), blank repeats
+    cand = np.sort(cand, axis=1)[:, ::-1]
+    dup = cand[:, 1:] == cand[:, :-1]
+    cand[:, 1:][dup] = -1
+    ncands = (cand >= 0).sum(axis=1)
+
+    cscores, nscored = predict_candidate_scores(model, oldmat, cand,
+                                                device=device)
+    rng = np.random.default_rng(0)
+    key = np.where(cand >= 0, cscores, -np.inf)
+    order = np.lexsort((rng.random(cand.shape), -key), axis=-1)
+    ids = np.take_along_axis(cand, order, axis=1)[:, :nrcmds]
+    scores = np.take_along_axis(cscores, order, axis=1)[:, :nrcmds]
+    counts = np.minimum(np.minimum(nrcmds, nscored), ncands).astype(np.int32)
+    ids[np.arange(ids.shape[1])[None, :] >= counts[:, None]] = -1
+    if ids.shape[1] < nrcmds:
+        pad = nrcmds - ids.shape[1]
+        ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
+        scores = np.pad(scores, ((0, 0), (0, pad)))
+    return ids, scores, counts
 
 
 def main(argv=None):
@@ -30,15 +73,13 @@ def main(argv=None):
     parser.add_argument("negfile", nargs="?", default=None)
     args = parser.parse_args(normalise_argv(sys.argv[1:] if argv is None
                                             else argv))
-    if args.negfile:
-        raise NotImplementedError("neg-file mode (candidate scores) is not "
-                                  "ported yet")
     setup_logging(args.dbglvl)
     banner()
 
     model = read_matrix(args.mdlfile, fmt=args.ifmt)
     oldmat = read_matrix(args.trnfile, fmt=args.ifmt)
     tstmat = read_matrix(args.tstfile, fmt=args.ifmt) if args.tstfile else None
+    negmat = read_matrix(args.negfile, fmt=args.ifmt) if args.negfile else None
 
     print(f"  mdlfile: {args.mdlfile}, nrows: {model.nrows}, "
           f"ncols: {model.ncols}, nnz: {model.nnz}")
@@ -59,9 +100,15 @@ def main(argv=None):
         oldmat = oldmat.binarize()
         if tstmat:
             tstmat = tstmat.binarize()
+        if negmat:
+            negmat = negmat.binarize()
 
-    ids, scores, counts = predict_topn(model, oldmat, nrcmds=args.nrcmds,
-                                       device=args.device)
+    if negmat is None:
+        ids, scores, counts = predict_topn(model, oldmat, nrcmds=args.nrcmds,
+                                           device=args.device)
+    else:
+        ids, scores, counts = negfile_topn(model, oldmat, tstmat, negmat,
+                                           args.nrcmds, args.device)
 
     if args.outfile:
         with open(args.outfile, "w") as fh:

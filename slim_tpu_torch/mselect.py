@@ -48,9 +48,9 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
     if mesh is not None:
         raise NotImplementedError("mesh-distributed mselect is not ported "
                                   "yet (ROADMAP Queue 1: parallel/)")
-    if cfg.algo != "cd" or cfg.mtype not in ("slim", "oslim"):
-        raise NotImplementedError(f"mselect with algo {cfg.algo!r}, mtype "
-                                  f"{cfg.mtype!r} is not ported yet")
+    if cfg.algo != "cd":
+        raise NotImplementedError(f"mselect with algo {cfg.algo!r} is not "
+                                  "ported yet")
     dev = resolve_device(device)
     train = train.infer_ncols()
     test = test.infer_ncols()
@@ -61,8 +61,8 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
     fmarker = determine_head_tail(train, ncols)
     npad = bucket_npad(ncols)
     gram = compute_gram(train, cfg.gram, pad_to=npad, device=dev)
-    # the port predicts on the dense device path only, so the model stays
-    # on the device whenever that path takes the catalogue
+    # the retained pack serves the dense predict route only, so the model
+    # stays on the device whenever that route takes the catalogue
     keep_dev = npad <= SPARSE_PREDICT_THRESHOLD
 
     results = []

@@ -9,13 +9,15 @@ min(50·nnz_j, maxniters) sweeps (estimate.c:448-449).
 
 :func:`_cd_core` is the plain-PyTorch solve: the CPU path of the solver and
 the oracle the sweep kernels (ops/cd_sweep.py) are held against.  The
-screen helpers build the union active sets of the compact path.
+screen helpers build the union active sets of the compact path;
+:func:`fslim_active_mask` replaces the screen for FSLIM.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import topk_lowest_id
 from .pack import pack_plain as pack_flat  # noqa: F401  (the pack contract)
 
 CHUNK = 128  # coordinates per Gauss-Seidel chunk
@@ -34,6 +36,43 @@ def screen(gj, j_ids, l1v, col_ids=None):
     ids = col_ids if col_ids is not None else \
         torch.arange(width, device=gj.device, dtype=j_ids.dtype)
     return (gj > l1v[:, None]) & (ids[None, :] != j_ids[:, None])
+
+
+def fslim_active_mask(gj, diag, self_ids, n_valid, nnbrs, simtype,
+                      col_ids=None, self_norms=None):
+    """FSLIM neighbour selection from Gram columns (neighbors.c:16-125):
+    candidates are co-rated with the target (gj > 0), not the target
+    itself and below ``n_valid``; similarity ``dotp`` = aᵀb, ``cos`` =
+    aᵀb/‖b‖ (the target's own norm is constant per column), ``jac`` =
+    aᵀb/(‖b‖+‖a‖-aᵀb) with 2-norms.  The top ``nnbrs`` finite similarities
+    form the active set, equal values taken at the lowest position first
+    (``lax.top_k``'s order; binary data ties often at the k-th slot).
+
+    ``col_ids`` (width,) maps positions to coordinates in a compact space
+    whose ids ascend with the position, so the lowest position is the
+    lowest id there too; ``self_norms`` (B,) gives ‖a_j‖ when ``diag`` is
+    compacted (jac only)."""
+    B, width = gj.shape
+    cnorms = torch.sqrt(diag)
+    ids = col_ids if col_ids is not None else \
+        torch.arange(width, device=gj.device, dtype=self_ids.dtype)
+    cand = (gj > 0) & (ids[None, :] != self_ids[:, None]) \
+        & (ids[None, :] < n_valid)
+    if simtype == "dotp":
+        sim = gj
+    elif simtype == "cos":
+        sim = gj / torch.clamp(cnorms, min=1e-30)[None, :]
+    elif simtype == "jac":
+        selfn = self_norms if self_norms is not None else \
+            cnorms[self_ids.long().clamp(0, width - 1)]
+        denom = cnorms[None, :] + selfn[:, None] - gj
+        sim = gj / torch.where(denom.abs() > 1e-30, denom, 1e-30)
+    else:
+        raise ValueError(f"unknown simtype {simtype!r}")
+    sim = torch.where(cand, sim, float("-inf"))
+    vals, top = topk_lowest_id(sim, max(1, min(int(nnbrs), width)))
+    return torch.zeros((B, width), dtype=torch.bool, device=gj.device) \
+        .scatter_(1, top, torch.isfinite(vals))
 
 
 def count_over(x, eps):
@@ -74,13 +113,20 @@ def compact_union_ids(u):
     return ids, u.sum(dim=1, dtype=torch.int32)
 
 
-def block_union_mask(G, j_ids, l1r, K):
+def block_union_mask(G, j_ids, l1r, K, fslim_nnbrs=0, simtype="cos"):
     """Union active set of one block: (S (K,) ascending ids padded with
-    npad-1, true union count)."""
+    npad-1, true union count).  With ``fslim_nnbrs`` > 0 the union of the
+    columns' FSLIM neighbour sets: restricting each column's top-k to it is
+    exact, since every column's own top-k lies inside."""
     npad = G.shape[0]
-    gj = G[:, j_ids.long()].T
+    gj = G[:, j_ids.long()].T.contiguous()
     B = gj.shape[0]
-    u = screen(gj, j_ids, per_col(l1r, B, G.device)).any(dim=0)
+    if fslim_nnbrs > 0:
+        active = fslim_active_mask(gj, torch.diagonal(G), j_ids, npad,
+                                   fslim_nnbrs, simtype)
+    else:
+        active = screen(gj, j_ids, per_col(l1r, B, G.device))
+    u = active.any(dim=0)
     count = int(u.sum())
     cols = torch.arange(npad, device=G.device, dtype=j_ids.dtype)
     key = torch.where(u, cols, cols + npad)
@@ -112,14 +158,22 @@ def _solve(impl, G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol, gen,
 
 def cd_solve_block_ids(G, j_ids, caps, x0, l1r, l2r, optTol, gen,
                        shuffle=True, impl="plain", x0_zero=False,
-                       variant="v4"):
+                       variant="v4", n_valid=None, fslim_nnbrs=0,
+                       simtype="cos"):
     """Solve the B columns ``j_ids`` over the full coordinate space
-    (padded entries point at the zero column npad-1 with cap 0)."""
+    (padded entries point at the zero column npad-1 with cap 0).  With
+    ``fslim_nnbrs`` > 0 the active sets are the columns' FSLIM neighbours
+    among the first ``n_valid`` coordinates (default: all)."""
     B = j_ids.shape[0]
     diag = torch.diagonal(G)
     gj = G[:, j_ids.long()].T.contiguous()                  # (B, npad)
     l1v, l2v = per_col(l1r, B, G.device), per_col(l2r, B, G.device)
-    active = screen(gj, j_ids, l1v)
+    if fslim_nnbrs > 0:
+        active = fslim_active_mask(
+            gj, diag, j_ids, G.shape[0] if n_valid is None else n_valid,
+            fslim_nnbrs, simtype)
+    else:
+        active = screen(gj, j_ids, l1v)
     yty = diag[j_ids.long()]
     return _solve(impl, G, gj, diag, active, x0, caps, yty, l1v, l2v,
                   optTol, gen, shuffle, x0_zero, variant)
@@ -127,9 +181,10 @@ def cd_solve_block_ids(G, j_ids, caps, x0, l1r, l2r, optTol, gen,
 
 def cd_solve_block_compact(G, S, j_ids, caps, x0s, l1r, l2r, optTol, gen,
                            shuffle=True, impl="plain", x0_zero=False,
-                           variant="v4"):
+                           variant="v4", fslim_nnbrs=0, simtype="cos"):
     """Solve a block in the compact coordinate space S (exact: coordinates
-    outside S are inactive for every column of the block)."""
+    outside S are inactive for every column of the block; for FSLIM, S is
+    the union of the columns' neighbour sets)."""
     npad = G.shape[0]
     B = j_ids.shape[0]
     Sl = S.long()
@@ -139,7 +194,13 @@ def cd_solve_block_compact(G, S, j_ids, caps, x0s, l1r, l2r, optTol, gen,
     diag_s = diag_full[Sl]
     gjs = G[:, j_ids.long()].T[:, Sl].contiguous()          # (B, K)
     yty = diag_full[j_ids.long()]
-    active = screen(gjs, j_ids, l1v, col_ids=S) & (S != npad - 1)[None, :]
+    if fslim_nnbrs > 0:
+        active = fslim_active_mask(gjs, diag_s, j_ids, npad, fslim_nnbrs,
+                                   simtype, col_ids=S,
+                                   self_norms=torch.sqrt(yty))
+    else:
+        active = screen(gjs, j_ids, l1v, col_ids=S)
+    active &= (S != npad - 1)[None, :]
     return _solve(impl, Gs, gjs, diag_s, active, x0s, caps, yty, l1v, l2v,
                   optTol, gen, shuffle, x0_zero, variant)
 

@@ -1,20 +1,38 @@
-"""Top-N prediction, dense path (port of slim_tpu/predict.py).
+"""Top-N prediction (port of slim_tpu/predict.py).
 
 score(k) = Σ_{i in history} rating_i · W[i, k] (predict.c:40-58); history
 items are excluded and only items with score > 0 are candidates, so a user
-can get fewer than N recommendations (predict.c:62).
+can get fewer than N recommendations (predict.c:62).  Top-N lists order
+equal scores by the lowest id (:func:`topk_lowest_id`, the order
+``lax.top_k`` gives).  Each call scores on one of three routes:
 
-The model is densified on the device through the densify kernel (model
-rows as runs), each user block's histories likewise; the scores are one
-float32 ``torch.matmul`` (TF32 off), then the history mask and the top-N
-with ties broken by the lowest id (:func:`topk_lowest_id`, the order
-``lax.top_k`` gives).  Ids come back directly (no packed transfer).  Catalogues
-above SPARSE_PREDICT_THRESHOLD need the padded-sparse path, which is not
-ported yet.  A model the solver kept on the device
-(:class:`DeviceModelPack`) densifies there, with no upload.
+* **dense** (npad <= SPARSE_PREDICT_THRESHOLD): the model is densified on
+  the device through the densify kernel (model rows as runs), each user
+  block's histories likewise; the scores are one float32 ``torch.matmul``
+  (TF32 off).  A model the solver kept on the device
+  (:class:`DeviceModelPack`) densifies there, with no upload.
+* **sparse score rows** (wider catalogues, or ``sparse=True``): each
+  history entry expands to its model row's real entries (:class:`RowModel`)
+  and the (user, candidate, weight) pairs scatter-add into a float32
+  (users, npad) score block.  The JAX package gathers padded (users, H, R)
+  blocks instead; a learned model's rows are skewed (a popular item
+  neighbours most targets), so R reaches thousands, and one step here
+  holds at most STEP_BYTES of pairs whatever R or H are.
+* **COO** (sparse, npad >= SLIM_PREDICT_COO_NPAD, default 2^19): the pairs,
+  keyed user * npad + candidate in int64, are sorted and their duplicates
+  summed; each user's runs are ordered by (score desc, id asc), so no
+  npad-wide row exists.  History exclusion is a HISTORY_MARK pair.
+
+:func:`predict_candidate_scores` and :func:`predict_topn_1vsk` score an
+explicit candidate list per user on the same routes.  The JAX package's
+one-dispatch scans, chunked top-k and packed id transport are TPU dispatch
+and sort workarounds with the same outputs; ``scan=`` is accepted and
+ignored.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -23,12 +41,29 @@ from .ops.densify import densify_runs
 from .ops.gram import pin_f32
 from .solvers.cd import bucket_npad
 from .types import CSR
-from .utils import resolve_device
+from .utils import resolve_device, topk_lowest_id
 
 # above this many items a dense (npad, npad) W stops fitting next to the
-# score blocks; the JAX package switches to padded-sparse scoring there
+# score blocks on the JAX package's 16 GB part; kept for parity of routes
 SPARSE_PREDICT_THRESHOLD = 36864
 SCORE_BLOCK_BYTES = 1 << 30   # bytes of one (users, npad) score block
+COO_PREDICT_NPAD = 1 << 19    # default SLIM_PREDICT_COO_NPAD
+STEP_BYTES = 1 << 30          # device bytes of one sparse scoring step
+PAIR_BYTES = 64               # bytes one pair takes through a step: ids,
+                              # keys, weights and the COO sort's buffers
+HISTORY_MARK = -1e30          # a COO history pair: its run's sum goes < 0
+
+
+def coo_npad() -> int:
+    """SLIM_PREDICT_COO_NPAD, read at call time: sparse calls at or above
+    this npad take the COO route (0: never)."""
+    return int(os.environ.get("SLIM_PREDICT_COO_NPAD", COO_PREDICT_NPAD))
+
+
+def _wval_bf16() -> bool:
+    """SLIM_PREDICT_WVAL_BF16=1, read at call time: the sparse routes keep
+    the model's values in bfloat16 (products and sums stay float32)."""
+    return os.environ.get("SLIM_PREDICT_WVAL_BF16") == "1"
 
 
 def densify_model(model: CSR, npad: int | None = None, device=None):
@@ -101,88 +136,411 @@ class DeviceModelPack:
         self._W = None
 
 
-def topk_lowest_id(sc, k: int):
-    """``torch.topk(sc, k, dim=1)`` with equal scores ordered by the lowest
-    index first, as ``lax.top_k`` orders them (torch.topk leaves that order
-    unspecified, on the CPU and on the card).  The entries above the k-th
-    value are the top-k's own, ordered by (score desc, index asc); the
-    remaining slots take the lowest indices whose score equals the k-th."""
-    top_sc, top_id = torch.topk(sc, k, dim=1)
-    o = torch.argsort(top_id, dim=1)
-    top_sc, top_id = top_sc.gather(1, o), top_id.gather(1, o)
-    o = torch.sort(top_sc, dim=1, descending=True, stable=True).indices
-    top_sc, top_id = top_sc.gather(1, o), top_id.gather(1, o)
-    kth = top_sc[:, -1:]
-    n = sc.shape[1]
-    iota = torch.arange(n, dtype=torch.int32, device=sc.device)
-    low = torch.topk(torch.where(sc == kth, iota, n), k, dim=1,
-                     largest=False).values          # ascending
-    n_gt = (top_sc > kth).sum(dim=1, keepdim=True)
-    slot = torch.arange(k, device=sc.device)[None, :]
-    tie = low.gather(1, (slot - n_gt).clamp(min=0)).to(top_id.dtype)
-    return top_sc, torch.where(slot < n_gt, top_id, tie)
+def sparsify_model_device(model: CSR, npad: int | None = None, device=None):
+    """Padded-row copy of the model on ``device``: (Widx (npad, R) int32,
+    Wval (npad, R) float32, or bfloat16 under SLIM_PREDICT_WVAL_BF16=1).
+    Row i holds model row i's candidate ids and weights left-aligned,
+    padded with (npad-1, 0.0); R is the power-of-two ceiling of the
+    longest row.  Built on the device from the flat CSR upload.  Passed
+    as ``W_dev`` it routes a call sparse, and only each row's real entries
+    are scored."""
+    dev = resolve_device(device)
+    n = max(model.nrows, model.ncols)
+    npad = npad if npad is not None else bucket_npad(n)
+    nr = min(model.nrows, npad)
+    lens = np.zeros(npad, np.int64)
+    lens[:nr] = np.diff(model.indptr)[:nr]
+    R = 1 << (max(int(lens.max()), 1) - 1).bit_length()
+    vdt = torch.bfloat16 if _wval_bf16() else torch.float32
+    Wi = torch.full((npad, R), npad - 1, dtype=torch.int32, device=dev)
+    Wv = torch.zeros((npad, R), dtype=vdt, device=dev)
+    T = int(model.indptr[nr])
+    if T:
+        rows = torch.repeat_interleave(
+            torch.arange(npad, device=dev), torch.from_numpy(lens).to(dev),
+            output_size=T)
+        starts = torch.from_numpy(model.indptr[:nr].astype(np.int64)).to(dev)
+        pos = torch.arange(T, device=dev) - starts[rows]
+        Wi[rows, pos] = model.dev_put(
+            "idx32", lambda: model.indices.astype(np.int32), dev)[:T]
+        Wv[rows, pos] = model.dev_put(
+            "val32", lambda: model.values().astype(np.float32),
+            dev)[:T].to(vdt)
+    return Wi, Wv
+
+
+class RowModel:
+    """The model's rows on the device as runs of one flat (ids, values)
+    pair: row i is ``idx[starts[i]:starts[i] + lens[i]]``.  The sparse
+    routes expand a history entry of item i to row i's real entries;
+    ``lens_h`` (host) plans their steps."""
+
+    def __init__(self, idx, val, starts, lens_h):
+        self.idx, self.val, self.starts = idx, val, starts
+        self.lens_h = lens_h
+        self.lens = torch.from_numpy(lens_h).to(idx.device)
+
+    @staticmethod
+    def of_csr(model: CSR, npad: int, dev) -> "RowModel":
+        """The CSR's rows as they are: no padding, uploaded once per
+        device (``CSR.dev_put``)."""
+        nr = min(model.nrows, npad)
+        lens = np.zeros(npad, np.int64)
+        starts = np.zeros(npad, np.int64)
+        lens[:nr] = np.diff(model.indptr)[:nr]
+        starts[:nr] = model.indptr[:nr]
+        idx = model.dev_put("idx32", lambda: model.indices.astype(np.int32),
+                            dev)
+        val = model.dev_put("val32", lambda: model.values().astype(
+            np.float32), dev)
+        if _wval_bf16():
+            val = val.to(torch.bfloat16)
+        return RowModel(idx, val, torch.from_numpy(starts).to(dev), lens)
+
+    @staticmethod
+    def of_padded(Widx, Wval, npad: int) -> "RowModel":
+        """The rows of a :func:`sparsify_model_device` pair: a row's real
+        entries are those whose id is not the padding npad-1 (no item
+        has that id)."""
+        if Widx.shape[0] != npad:
+            raise ValueError(f"padded model has {Widx.shape[0]} rows, the "
+                             f"call's npad is {npad}")
+        R = Widx.shape[1]
+        lens = (Widx != npad - 1).sum(dim=1)
+        starts = torch.arange(npad, device=Widx.device, dtype=torch.int64) * R
+        return RowModel(Widx.reshape(-1), Wval.reshape(-1), starts,
+                        lens.cpu().numpy().astype(np.int64))
+
+
+def _steps(weights, budget: int):
+    """Contiguous [a, b) ranges over ``weights`` (host ints), each summing
+    to at most ``budget`` unless one weight alone exceeds it."""
+    cum = np.cumsum(weights, dtype=np.int64)
+    out, a, base = [], 0, 0
+    while a < cum.size:
+        b = max(int(np.searchsorted(cum, base + budget, side="right")), a + 1)
+        out.append((a, b))
+        base, a = int(cum[b - 1]), b
+    return out
+
+
+def _block_topn(sc, nrcmds):
+    """Top-N of a masked score block: ids (-1 past the count), scores (0
+    past it) and the count min(#(score > 0), nrcmds)."""
+    cnt = (sc > 0).sum(dim=1).clamp(max=nrcmds)
+    top_sc, top_id = topk_lowest_id(sc, nrcmds)
+    ok = torch.arange(nrcmds, device=sc.device)[None, :] < cnt[:, None]
+    return torch.where(ok, top_id, -1), torch.where(ok, top_sc, 0.0), cnt
 
 
 def _user_block(npad: int, user_block: int) -> int:
-    """Users per scored block: up to 4x ``user_block``, bounded so one
-    score block stays within SCORE_BLOCK_BYTES."""
+    """Users per dense score block: up to 4x ``user_block``, bounded so
+    one score block stays within SCORE_BLOCK_BYTES."""
     fit = max(8, SCORE_BLOCK_BYTES // (npad * 4))
     return max(user_block, min(4 * user_block, 1 << (fit.bit_length() - 1)))
 
 
+class _Route:
+    """Where one call scores: the dense ``W``, or the sparse ``rows`` by
+    score rows or, with ``coo``, by sorted pairs.  A
+    :class:`DeviceModelPack` whose npad is not the call's is ignored (the
+    model is uploaded), as in the JAX package (predict.py:1122-1125)."""
+
+    def __init__(self, model: CSR, hist: CSR, W_dev, sparse, device):
+        self.n = n = max(model.nrows, model.ncols, hist.ncols)
+        self.npad = npad = bucket_npad(n)
+        if isinstance(W_dev, DeviceModelPack):
+            dev = W_dev.device
+            if W_dev.npad != npad:
+                W_dev = None
+        elif isinstance(W_dev, tuple):
+            dev = W_dev[0].device
+        else:
+            dev = resolve_device(device) if W_dev is None else W_dev.device
+        self.dev = dev
+        if sparse is None:
+            sparse = isinstance(W_dev, tuple) or (
+                W_dev is None and npad > SPARSE_PREDICT_THRESHOLD)
+        pin_f32()
+        self.W = self.rows = None
+        self.coo = False
+        if not sparse:
+            if isinstance(W_dev, DeviceModelPack):
+                self.W = W_dev.densify()
+            elif torch.is_tensor(W_dev):
+                self.W = W_dev
+            else:
+                self.W = densify_model(model, npad, dev)
+            return
+        self.rows = RowModel.of_padded(*W_dev, npad) \
+            if isinstance(W_dev, tuple) else RowModel.of_csr(model, npad, dev)
+        self.coo = 0 < coo_npad() <= npad
+        # the history's entries on the device, and each entry's model-row
+        # length on the host (0 for ids >= n, the guard of predict.c:35)
+        self.c = hist.dev_put("idx32", lambda: hist.indices.astype(np.int32),
+                              dev)
+        self.v = None if hist.data is None else hist.dev_put(
+            "val32", lambda: hist.values().astype(np.float32), dev)
+        self.u = hist.dev_put("row32", lambda: np.repeat(
+            np.arange(hist.nrows, dtype=np.int32), np.diff(hist.indptr)), dev)
+        self.ok_h = hist.indices < n
+        self.L_h = np.where(
+            self.ok_h, self.rows.lens_h[np.minimum(hist.indices, npad - 1)],
+            0)
+
+    def pairs(self, a: int, b: int, u0: int):
+        """The (history entry, model entry) pairs of entries [a, b): each
+        pair's key (user - u0) * npad + candidate (int64) and weight
+        (float32)."""
+        rows, dev = self.rows, self.dev
+        P = int(self.L_h[a:b].sum())
+        c = self.c[a:b].long()
+        c = torch.where(c < self.n, c, 0)
+        L = torch.from_numpy(self.L_h[a:b]).to(dev)
+        e = torch.repeat_interleave(torch.arange(b - a, device=dev), L,
+                                    output_size=P)
+        flat = torch.arange(P, device=dev)
+        flat -= (torch.cumsum(L, 0) - L)[e]
+        flat += rows.starts[c][e]
+        cand = rows.idx[flat]
+        w = rows.val[flat].float()
+        del flat
+        if self.v is not None:
+            w *= self.v[a:b][e]
+        key = self.u[a:b].long()[e]
+        key -= u0
+        key *= self.npad
+        key += cand
+        return key, w
+
+    def history_keys(self, a: int, b: int, u0: int):
+        """(user - u0) * npad + item of entries [a, b) with item < n."""
+        c = self.c[a:b].long()
+        return ((self.u[a:b].long() - u0) * self.npad + c)[c < self.n]
+
+    def score_blocks(self, hist: CSR, user_block: int, mask: bool):
+        """(users (host ids), float32 (len(users), npad) scores) per user
+        block of the dense or score-row route; with ``mask`` the history
+        items score -inf."""
+        if self.W is not None:
+            yield from self._dense_blocks(hist, user_block, mask)
+            return
+        npad = self.npad
+        fit = max(1, SCORE_BLOCK_BYTES // (npad * 4))
+        ub = max(1, min(user_block, 1 << (fit.bit_length() - 1)))
+        budget = STEP_BYTES // PAIR_BYTES
+        for u0 in range(0, hist.nrows, ub):
+            u1 = min(u0 + ub, hist.nrows)
+            sc = torch.zeros((u1 - u0, npad), dtype=torch.float32,
+                             device=self.dev)
+            flat = sc.view(-1)
+            e0, e1 = int(hist.indptr[u0]), int(hist.indptr[u1])
+            for a, b in _steps(self.L_h[e0:e1], budget):
+                flat.index_add_(0, *self.pairs(e0 + a, e0 + b, u0))
+            if mask:
+                flat.index_fill_(0, self.history_keys(e0, e1, u0),
+                                 float("-inf"))
+            yield np.arange(u0, u1), sc
+
+    def _dense_blocks(self, hist: CSR, user_block: int, mask: bool):
+        # users in history-length order so each block's entry width is tight
+        n, npad, dev = self.n, self.npad, self.dev
+        row_nnz = hist.row_nnz().astype(np.int64)
+        order = np.argsort(-row_nnz, kind="stable")
+        ones = hist.data is None
+        idx = hist.dev_put("idx32", lambda: hist.indices.astype(np.int32),
+                           dev)
+        val = None if ones else hist.dev_put(
+            "val32", lambda: hist.values().astype(np.float32), dev)
+        ub = _user_block(npad, user_block)
+        for u0 in range(0, hist.nrows, ub):
+            users = order[u0:u0 + ub]
+            rs, rl = hist.indptr[users], row_nnz[users]
+            hdT = densify_runs(idx, val, rs, rl, npad, n, torch.zeros(
+                (npad, len(users)), dtype=torch.float32, device=dev))
+            sc = hdT.T @ self.W                            # (users, npad)
+            if mask:
+                maskT = hdT > 0 if ones else densify_runs(
+                    idx, None, rs, rl, npad, n, torch.zeros(
+                        (npad, len(users)), dtype=torch.int8,
+                        device=dev)) > 0
+                sc.masked_fill_(maskT.T, float("-inf"))
+            yield users, sc
+
+    def coo_runs(self, hist: CSR, exclude: bool):
+        """(u0, u1, keys, sums) per step of the COO route: the sorted
+        distinct keys (user - u0) * npad + candidate of users [u0, u1) and
+        each key's summed weight.  Users are grouped so one step's pairs
+        fit STEP_BYTES (a user whose pairs alone exceed it is a step of its
+        own).  With ``exclude`` each history item adds a HISTORY_MARK
+        pair."""
+        per_entry = self.L_h + (self.ok_h if exclude else 0)
+        cum = np.concatenate([[0], np.cumsum(per_entry, dtype=np.int64)])
+        per_user = cum[hist.indptr[1:]] - cum[hist.indptr[:-1]]
+        for u0, u1 in _steps(per_user, STEP_BYTES // PAIR_BYTES):
+            e0, e1 = int(hist.indptr[u0]), int(hist.indptr[u1])
+            key, w = self.pairs(e0, e1, u0)
+            if exclude:
+                hk = self.history_keys(e0, e1, u0)
+                key = torch.cat([key, hk])
+                w = torch.cat([w, torch.full(hk.shape, HISTORY_MARK,
+                                             device=self.dev)])
+            keys, inv = torch.unique(key, sorted=True, return_inverse=True)
+            del key
+            sums = torch.zeros(keys.shape[0], dtype=torch.float32,
+                               device=self.dev).index_add_(0, inv, w)
+            yield u0, u1, keys, sums
+
+
+def _coo_topn(keys, sums, U: int, npad: int, nrcmds: int):
+    """Top-N of U users from their COO runs: a stable sort by -sum then by
+    user orders each user's runs by (score desc, id asc), since the keys
+    ascend; counts are the runs with sum > 0 (history runs are < 0)."""
+    dev = keys.device
+    ids = torch.full((U, nrcmds), -1, dtype=torch.int64, device=dev)
+    sc = torch.zeros((U, nrcmds), dtype=torch.float32, device=dev)
+    cnt = torch.zeros(U, dtype=torch.int64, device=dev)
+    N = keys.numel()
+    if N == 0:
+        return ids, sc, cnt
+    user = keys // npad
+    o = torch.sort(-sums, stable=True).indices
+    o = o[torch.sort(user[o], stable=True).indices]
+    start = torch.searchsorted(user[o], torch.arange(U, device=dev))
+    cnt.index_add_(0, user, (sums > 0).long())
+    cnt.clamp_(max=nrcmds)
+    t = o[(start[:, None] + torch.arange(nrcmds, device=dev)).clamp(
+        max=N - 1)]
+    ok = torch.arange(nrcmds, device=dev)[None, :] < cnt[:, None]
+    return (torch.where(ok, keys[t] % npad, ids),
+            torch.where(ok, sums[t], sc), cnt)
+
+
+def _coo_join(keys, sums, cand, n: int, npad: int):
+    """Each candidate's summed score from U users' COO runs (0 where no
+    pair reached it or the id is outside [0, n)), and each user's count of
+    runs with sum > 0."""
+    U = cand.shape[0]
+    dev = keys.device
+    ok = (cand >= 0) & (cand < n)
+    q = torch.where(ok, torch.arange(U, device=dev)[:, None] * npad
+                    + cand.long().clamp(0, npad - 1), -1)
+    ns = torch.zeros(U, dtype=torch.int64, device=dev)
+    if keys.numel() == 0:
+        return torch.zeros(cand.shape, dtype=torch.float32, device=dev), ns
+    pos = torch.searchsorted(keys, q).clamp(max=keys.numel() - 1)
+    cs = torch.where(keys[pos] == q, sums[pos], 0.0)
+    ns.index_add_(0, keys // npad, (sums > 0).long())
+    return cs, ns
+
+
+def _gather_scores(sc, cd, n: int):
+    """Scores of the candidates ``cd`` (U, C) from score rows; ids outside
+    [0, n) score 0."""
+    g = sc.gather(1, cd.long().clamp(0, sc.shape[1] - 1))
+    return torch.where((cd >= 0) & (cd < n), g, 0.0)
+
+
 def predict_topn(model: CSR, hist: CSR, nrcmds: int = 10,
-                 user_block: int = 1024, W_dev=None, device=None):
+                 user_block: int = 1024, W_dev=None, sparse=None, scan=None,
+                 device=None):
     """Top-N for every user row of ``hist``.
 
     Returns (ids (nusers, nrcmds) int32 with -1 padding, scores (nusers,
     nrcmds) float32, counts (nusers,) int32).  ``W_dev``: a dense device
-    model from :func:`densify_model` to reuse across calls, or a
-    :class:`DeviceModelPack`."""
-    if isinstance(W_dev, DeviceModelPack):
-        W_dev = W_dev.densify()
-    dev = W_dev.device if W_dev is not None else resolve_device(device)
-    pin_f32()
-    n = max(model.nrows, model.ncols, hist.ncols)
-    npad = bucket_npad(n)
-    if npad > SPARSE_PREDICT_THRESHOLD:
-        raise NotImplementedError(
-            f"npad {npad} > {SPARSE_PREDICT_THRESHOLD}: the padded-sparse "
-            "predict path is not ported yet")
-    W = W_dev if W_dev is not None else densify_model(model, npad, dev)
+    model from :func:`densify_model` to reuse across calls, a
+    :class:`DeviceModelPack`, or a :func:`sparsify_model_device` pair
+    (which routes sparse).  ``sparse`` pins the route (default: sparse
+    above SPARSE_PREDICT_THRESHOLD); ``scan`` is accepted and ignored."""
+    r = _Route(model, hist, W_dev, sparse, device)
     nusers = hist.nrows
     ids = np.full((nusers, nrcmds), -1, np.int32)
     scores = np.zeros((nusers, nrcmds), np.float32)
     counts = np.zeros(nusers, np.int32)
     if nusers == 0:
         return ids, scores, counts
+    if r.coo:
+        blocks = ((slice(u0, u1), _coo_topn(keys, sums, u1 - u0, r.npad,
+                                            nrcmds))
+                  for u0, u1, keys, sums in r.coo_runs(hist, exclude=True))
+    else:
+        blocks = ((users, _block_topn(sc, nrcmds))
+                  for users, sc in r.score_blocks(hist, user_block, True))
+    for users, (i, s, c) in blocks:
+        ids[users] = i.to(torch.int32).cpu().numpy()
+        scores[users] = s.cpu().numpy()
+        counts[users] = c.to(torch.int32).cpu().numpy()
+    return ids, scores, counts
 
-    # users in history-length order so each block's entry width is tight
-    row_nnz = hist.row_nnz().astype(np.int64)
-    order = np.argsort(-row_nnz, kind="stable")
-    ones = hist.data is None
-    idx = hist.dev_put("idx32", lambda: hist.indices.astype(np.int32), dev)
-    val = None if ones else hist.dev_put(
-        "val32", lambda: hist.values().astype(np.float32), dev)
-    ub = _user_block(npad, user_block)
-    slot = torch.arange(nrcmds, device=dev)
-    for u0 in range(0, nusers, ub):
-        users = order[u0:u0 + ub]
-        rs = hist.indptr[users]
-        rl = row_nnz[users]
-        hdT = densify_runs(idx, val, rs, rl, npad, n, torch.zeros(
-            (npad, len(users)), dtype=torch.float32, device=dev))
-        if ones:
-            maskT = hdT > 0
-        else:
-            maskT = densify_runs(idx, None, rs, rl, npad, n, torch.zeros(
-                (npad, len(users)), dtype=torch.int8, device=dev)) > 0
-        sc = hdT.T @ W                                     # (users, npad)
-        sc.masked_fill_(maskT.T, float("-inf"))
-        ncand = (sc > 0).sum(dim=1)
-        top_sc, top_id = topk_lowest_id(sc, nrcmds)
-        cnt = torch.clamp(ncand, max=nrcmds)
-        ok = slot[None, :] < cnt[:, None]
-        ids[users] = torch.where(ok, top_id, -1).to(torch.int32).cpu().numpy()
-        scores[users] = torch.where(ok, top_sc, 0.0).cpu().numpy()
-        counts[users] = cnt.to(torch.int32).cpu().numpy()
+
+def _check_cand(hist: CSR, cand):
+    cand = np.ascontiguousarray(cand, dtype=np.int32)
+    if cand.ndim != 2 or cand.shape[0] != hist.nrows:
+        raise ValueError(f"candidates {cand.shape} do not match the "
+                         f"{hist.nrows} history rows")
+    return cand
+
+
+def predict_candidate_scores(model: CSR, hist: CSR, cand, W_dev=None,
+                             user_block: int = 1024, sparse=None,
+                             device=None):
+    """Scores of an explicit candidate list per user with the history
+    excluded: the core of the neg-file mode (slim_predict.c:110-143:
+    GetTopN over all items, then a candidate keeps its score if it was
+    scored, else 0).
+
+    ``cand`` is (nusers, C) int32 with -1 padding.  Returns (cscores
+    (nusers, C) float32, 0 for unscored, -1, out-of-range and history
+    candidates; nscored (nusers,) int32, the user's count of items with
+    score > 0 over all items, which truncates the final list)."""
+    r = _Route(model, hist, W_dev, sparse, device)
+    cand = _check_cand(hist, cand)
+    out_cs = np.zeros(cand.shape, np.float32)
+    out_ns = np.zeros(hist.nrows, np.int32)
+    if hist.nrows == 0:
+        return out_cs, out_ns
+    if r.coo:
+        cand_d = torch.from_numpy(cand).to(r.dev)
+        for u0, u1, keys, sums in r.coo_runs(hist, exclude=True):
+            cs, ns = _coo_join(keys, sums, cand_d[u0:u1], r.n, r.npad)
+            out_cs[u0:u1] = cs.clamp(min=0.0).cpu().numpy()
+            out_ns[u0:u1] = ns.to(torch.int32).cpu().numpy()
+        return out_cs, out_ns
+    for users, sc in r.score_blocks(hist, user_block, True):
+        cs = _gather_scores(sc, torch.from_numpy(cand[users]).to(r.dev), r.n)
+        out_cs[users] = cs.clamp(min=0.0).cpu().numpy()
+        out_ns[users] = (sc > 0).sum(dim=1).to(torch.int32).cpu().numpy()
+    return out_cs, out_ns
+
+
+def predict_topn_1vsk(model: CSR, hist: CSR, negitems, nrcmds: int = 10,
+                      W_dev=None, user_block: int = 1024, sparse=None,
+                      device=None):
+    """1-vs-k candidate-restricted prediction (GetRec_1vsk,
+    predict.c:77-133): the top min(nrcmds, nnegs) of each user's
+    candidates ``negitems`` (nusers, nnegs), equal scores at the lowest
+    candidate position first.  The history is not excluded; out-of-range
+    ids score 0 and keep their slot (predict.c:97-106).  Returns (ids,
+    scores, counts), counts being the full width."""
+    r = _Route(model, hist, W_dev, sparse, device)
+    neg = _check_cand(hist, negitems)
+    kk = min(nrcmds, neg.shape[1])
+    ids = np.full((hist.nrows, kk), -1, np.int32)
+    scores = np.zeros((hist.nrows, kk), np.float32)
+    counts = np.full(hist.nrows, kk, np.int32)
+    if hist.nrows == 0 or kk == 0:
+        return ids, scores, counts
+    neg_d = torch.from_numpy(neg).to(r.dev)
+    if r.coo:
+        blocks = ((slice(u0, u1), neg_d[u0:u1],
+                   _coo_join(keys, sums, neg_d[u0:u1], r.n, r.npad)[0])
+                  for u0, u1, keys, sums in r.coo_runs(hist, exclude=False))
+    else:
+        blocks = ((users, neg_d[users], _gather_scores(sc, neg_d[users],
+                                                       r.n))
+                  for users, sc in r.score_blocks(hist, user_block, False))
+    for users, cd, cs in blocks:
+        top_sc, pos = topk_lowest_id(cs, kk)
+        ids[users] = cd.gather(1, pos).cpu().numpy()
+        scores[users] = top_sc.cpu().numpy()
     return ids, scores, counts

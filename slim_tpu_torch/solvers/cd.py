@@ -6,7 +6,8 @@ are relabelled by training frequency (rank r = the r-th most-rated item),
 so blocks are consecutive rank ranges with similar sweep caps and the
 active-set screen concentrates in the low ranks.  Wide catalogues solve
 each block in its union-active-set space (compact path), snapped to full
-width when the union covers more than :func:`compact_frac` of it.  Each
+width when the union covers more than :func:`compact_frac` of it; FSLIM
+takes the union of the columns' neighbour sets instead of the screen's.  Each
 solved block is harvested by count_over -> offsets -> the pack kernel ->
 host, and the model is assembled with scipy (estimate.c:570-593), keeping
 entries > 1e-7 (estimate.c:492-505).
@@ -30,9 +31,9 @@ import torch
 
 from ..config import (SlimConfig, SLIM_DBG_INFO, SLIM_DBG_PROGRESS,
                       SLIM_DBG_TIME, dbg)
-from ..ops.cd_kernel import (block_union_flags, cd_solve_block_compact,
-                             cd_solve_block_ids, compact_union_ids,
-                             count_over)
+from ..ops.cd_kernel import (block_union_flags, block_union_mask,
+                             cd_solve_block_compact, cd_solve_block_ids,
+                             compact_union_ids, count_over)
 from ..ops.cd_sweep import GROUP, pick_large_variant
 from ..ops.densify import densify_runs
 from ..ops.gram import compute_gram, pin_f32
@@ -148,14 +149,18 @@ def _sync(dev):
 def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                       gram=None, keep_device_model=False, warm_pack=None,
                       device=None):
-    """Estimate the SLIM model with batched coordinate descent on
+    """Estimate the SLIM / FSLIM model with batched coordinate descent on
     ``device`` (default: the card; raises without one).
 
     Returns ``(model, stats)``: model is a CSR with rows = rated item,
     cols = target item (estimate.c:570-593); stats carries loss/fit/nnz,
-    the summed per-column sweeps, and ``phases`` (seconds per phase).
+    the summed per-column sweeps, ``phases`` (seconds per phase) and, on
+    the compact path, ``union_widths`` and ``unions``.
 
-    ``imodel`` warm-starts every column from that model (mtype slim, and
+    FSLIM (mtype fslim, and ofslim, which learns as fslim) restricts each
+    column's active set to its ``cfg.nnbrs`` most similar items
+    (``cfg.simtype``) and ignores the warm start.  ``imodel``
+    warm-starts every column from that model (mtype slim, and
     oslim, whose ``ordered`` flag the reference never reads);
     ``warm_pack``, the retained pack of a learn over the same matrix,
     replaces its upload.  ``gram``: a precomputed (npad, npad) Gram in
@@ -199,7 +204,11 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     g = g_raw.index_select(0, p_dev).index_select(1, p_dev)
     del g_raw
     caps_p = col_caps[p]
+    # FSLIM ignores the warm start (cd.py:613 of the JAX package: the
+    # reference's active-flag handshake only engages for the screen)
     use_warm = imodel is not None and cfg.mtype in ("slim", "oslim")
+    fslim_nnbrs = int(cfg.nnbrs) if cfg.mtype in ("fslim", "ofslim") else 0
+    fslim = dict(fslim_nnbrs=fslim_nnbrs, simtype=cfg.simtype)
     runs = warm_runs(imodel, warm_pack, p_pad, posmap_pad, n, dev) \
         if use_warm else None
     acc = _PackAccum() if keep_device_model else None
@@ -209,20 +218,36 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         B = min(B, COMPACT_BMAX)
     nblocks = (n + B - 1) // B
 
+    def block_ids(blk):
+        """(first rank, real columns, (B,) target ranks on the device, the
+        padding pointing at the zero column npad-1)."""
+        r0 = blk * B
+        nJ = min(B, n - r0)
+        Jpad = np.full(B, npad - 1, dtype=np.int32)
+        Jpad[:nJ] = np.arange(r0, r0 + nJ, dtype=np.int32)
+        return r0, nJ, torch.from_numpy(Jpad).to(dev)
+
     union = {}   # blk -> (K, S on device, S on host) for compact blocks
+    widths = Counter()
     if use_compact:
-        u = block_union_flags(g, nblocks, B, float(cfg.l1r))
-        s_dev, cnt = compact_union_ids(u)
-        del u
+        if fslim_nnbrs:
+            # one block's (B, npad) neighbour top-k at a time
+            rows = [block_union_mask(g, block_ids(blk)[2], cfg.l1r, npad,
+                                     **fslim) for blk in range(nblocks)]
+        else:
+            u = block_union_flags(g, nblocks, B, float(cfg.l1r))
+            s_dev, cnt = compact_union_ids(u)
+            del u
+            rows = zip(s_dev, cnt.cpu().numpy())
         frac = compact_frac()
-        for blk, c in enumerate(cnt.cpu().numpy()):
+        for blk, (s_row, c) in enumerate(rows):
             K = min(bucket_npad(max(int(c), 1)), npad)
             if K <= frac * npad and K < npad:
-                S = s_dev[blk, :K].contiguous()
+                S = s_row[:K].contiguous()
                 union[blk] = (K, S, S.cpu().numpy())
+            widths[K if blk in union else npad] += 1
+        del rows
         if dbg(cfg, SLIM_DBG_TIME):
-            widths = Counter(union[b][0] if b in union else npad
-                             for b in range(nblocks))
             logger.info("union widths: %s", " ".join(
                 f"{k}:{v}" for k, v in sorted(widths.items())))
     t = lap("relabel+screen", t)
@@ -231,13 +256,9 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     total_err = total_obj = 0.0
     total_niters = sweeps = 0
     for blk in range(nblocks):
-        r0 = blk * B
-        nJ = min(B, n - r0)
-        Jpad = np.full(B, npad - 1, dtype=np.int32)   # pad -> zero column
-        Jpad[:nJ] = np.arange(r0, r0 + nJ, dtype=np.int32)
+        r0, nJ, J = block_ids(blk)
         caps = np.zeros(B, dtype=np.int32)
         caps[:nJ] = caps_p[r0:r0 + nJ]
-        J = torch.from_numpy(Jpad).to(dev)
         caps_d = torch.from_numpy(caps).to(dev)
         gen = torch.Generator().manual_seed(int(cfg.seed) + blk)
         args = (float(cfg.l1r), float(cfg.l2r), float(cfg.optTol), gen)
@@ -253,9 +274,11 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                   impl=pick_impl(K, dev, cfg.compact_threshold),
                   variant=pick_large_variant(B, K))
         if S is not None:
-            out = cd_solve_block_compact(g, S, J, caps_d, x0, *args, **kw)
+            out = cd_solve_block_compact(g, S, J, caps_d, x0, *args, **kw,
+                                         **fslim)
         else:
-            out = cd_solve_block_ids(g, J, caps_d, x0, *args, **kw)
+            out = cd_solve_block_ids(g, J, caps_d, x0, *args, **kw,
+                                     n_valid=n, **fslim)
         t = lap("solve", t)
 
         # harvest: counts -> offsets -> pack kernel -> host
@@ -307,6 +330,12 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         "sweeps": sweeps,
         "phases": dict(phases),
     }
+    if use_compact:
+        # coordinate width -> blocks, and each compact block's union (rank
+        # ids, rank r = the r-th most-rated item)
+        stats["union_widths"] = dict(sorted(widths.items()))
+        stats["unions"] = {b: S_h[S_h < npad - 1]
+                           for b, (_, _, S_h) in union.items()}
     if acc is not None:
         stats["W_dev"] = acc.finalize(p_pad, posmap_pad, n, npad)
     if dbg(cfg, SLIM_DBG_TIME):

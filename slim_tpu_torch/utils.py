@@ -17,6 +17,28 @@ def nnz_bucket(n: int, floor: int = 8) -> int:
     return max(((n + step - 1) // step) * step, floor)
 
 
+def topk_lowest_id(sc, k: int):
+    """``torch.topk(sc, k, dim=1)`` with equal scores ordered by the lowest
+    index first, as ``lax.top_k`` orders them (torch.topk leaves that order
+    unspecified, on the CPU and on the card).  The entries above the k-th
+    value are the top-k's own, ordered by (score desc, index asc); the
+    remaining slots take the lowest indices whose score equals the k-th."""
+    top_sc, top_id = torch.topk(sc, k, dim=1)
+    o = torch.argsort(top_id, dim=1)
+    top_sc, top_id = top_sc.gather(1, o), top_id.gather(1, o)
+    o = torch.sort(top_sc, dim=1, descending=True, stable=True).indices
+    top_sc, top_id = top_sc.gather(1, o), top_id.gather(1, o)
+    kth = top_sc[:, -1:]
+    n = sc.shape[1]
+    iota = torch.arange(n, dtype=torch.int32, device=sc.device)
+    low = torch.topk(torch.where(sc == kth, iota, n), k, dim=1,
+                     largest=False).values          # ascending
+    n_gt = (top_sc > kth).sum(dim=1, keepdim=True)
+    slot = torch.arange(k, device=sc.device)[None, :]
+    tie = low.gather(1, (slot - n_gt).clamp(min=0)).to(top_id.dtype)
+    return top_sc, torch.where(slot < n_gt, top_id, tie)
+
+
 def resolve_device(device=None) -> torch.device:
     """``device`` as given, else the first CUDA card.  With no device and no
     card it raises: the port never falls back to the CPU unasked, a CPU run

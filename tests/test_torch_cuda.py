@@ -16,6 +16,7 @@ from slim_tpu_torch.ops import pack as P
 from slim_tpu_torch.ops.cd_kernel import _cd_core, per_col, screen
 from slim_tpu_torch.predict import predict_topn
 from slim_tpu_torch.types import CSR
+from test_torch_predict_sparse import assert_topn_match
 
 pytestmark = pytest.mark.cuda
 
@@ -265,3 +266,113 @@ def test_gram_on_card_matches_host(dev, rng):
                             mat.data)
         got = G.gram_device(m, pad_to=256, device=dev).cpu().numpy()
         np.testing.assert_allclose(got, G.gram_host(m, 256), rtol=1e-6)
+
+
+def _skewed_model(rng, n, nnz_row, long_row, long_len):
+    """A model of ``nnz_row`` entries per row, plus one row ``long_row``
+    of ``long_len`` entries (a popular item that neighbours most
+    targets)."""
+    mr = np.concatenate([np.repeat(np.arange(n), nnz_row),
+                         np.full(long_len, long_row)])
+    mc = np.concatenate([rng.integers(0, n, n * nnz_row),
+                         rng.choice(n, long_len, replace=False)])
+    return CSR.from_ijv(mr, mc, rng.random(mr.size).astype(np.float32)
+                        + 0.01, nrows=n, ncols=n)
+
+
+@pytest.mark.parametrize("route", ["rows", "coo"])
+def test_sparse_routes_on_card_match_cpu(dev, rng, monkeypatch, route):
+    """Sparse top-N, 1-vs-k and candidate scores on the card against the
+    CPU path, score rows and COO, on a skewed model."""
+    from slim_tpu_torch.predict import (predict_candidate_scores,
+                                        predict_topn_1vsk)
+
+    monkeypatch.setenv("SLIM_PREDICT_COO_NPAD",
+                       "1" if route == "coo" else "0")
+    n, nusers = 3000, 700
+    model = _skewed_model(rng, n, 20, 5, 2500)
+    hist = random_csr(rng, nusers, n, density=0.01, implicit=True)
+    hist = CSR.from_arrays(nusers, n, hist.indptr, hist.indices, None)
+    cand = rng.integers(-1, n, (nusers, 40)).astype(np.int32)
+    for fn, args in ((predict_topn, dict(nrcmds=10)),
+                     (predict_topn_1vsk, dict(negitems=cand, nrcmds=10))):
+        got = fn(model, hist, sparse=True, device=dev, **args)
+        ref = fn(model, hist, sparse=True, device="cpu", **args)
+        assert_topn_match(got, ref)
+    cs, ns = predict_candidate_scores(model, hist, cand, sparse=True,
+                                      device=dev)
+    cs_c, ns_c = predict_candidate_scores(model, hist, cand, sparse=True,
+                                          device="cpu")
+    np.testing.assert_array_equal(ns, ns_c)
+    np.testing.assert_allclose(cs, cs_c, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("route", ["rows", "coo"])
+def test_sparse_step_memory_on_card(dev, rng, monkeypatch, route):
+    """Under a skewed model one step of the ragged scoring takes at most
+    STEP_BYTES of device memory beyond the route's inputs: the peak over a
+    score block's steps (score rows; the block itself set aside, no top-k
+    run) or of one COO step, at a 16 MiB budget.  One unbounded step
+    measures the bytes a pair takes, held to PAIR_BYTES, the constant that
+    turns the budget into pairs per step."""
+    import slim_tpu_torch.predict as PR
+
+    monkeypatch.setenv("SLIM_PREDICT_COO_NPAD",
+                       "1" if route == "coo" else "0")
+    n, nusers = 20000, 1024
+    model = _skewed_model(rng, n, 10, 3, 19000)
+    h = random_csr(rng, nusers, n, density=0.002, implicit=True)
+    hr = np.concatenate([np.repeat(np.arange(nusers), np.diff(h.indptr)),
+                         np.arange(nusers)])
+    hc = np.concatenate([h.indices, np.full(nusers, 3)])
+    hist = CSR.from_ijv(hr, hc, np.ones(hr.size, np.float32), nrows=nusers,
+                        ncols=n).binarize()
+
+    def first_step(step_bytes):
+        """(device bytes at the peak of the route's first step beyond its
+        inputs and its score block, the pairs that step expands)."""
+        monkeypatch.setattr(PR, "STEP_BYTES", step_bytes)
+        r = PR._Route(model, hist, None, True, dev)             # uploads
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        if route == "rows":
+            users, sc = next(r.score_blocks(hist, nusers, True))
+            held = sc.numel() * sc.element_size()
+            pairs = int(r.L_h[:int(hist.indptr[len(users)])].sum())
+        else:
+            u0, u1, keys, sums = next(r.coo_runs(hist, True))
+            held = 0
+            end = int(hist.indptr[u1])
+            pairs = int(r.L_h[:end].sum() + r.ok_h[:end].sum())
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - base - held, pairs
+
+    budget = 1 << 24
+    step, _ = first_step(budget)
+    assert step <= budget, (step, budget)
+    whole, pairs = first_step(1 << 34)
+    assert pairs > 4 * budget // PR.PAIR_BYTES, pairs    # many budgets' worth
+    print(f"{route}: step peak {step} bytes at a {budget}-byte budget; "
+          f"{whole / pairs:.2f} bytes per pair over {pairs} pairs")
+    assert whole <= pairs * PR.PAIR_BYTES, (whole / pairs, PR.PAIR_BYTES)
+
+
+def test_fslim_learn_on_card_matches_cpu(dev, rng):
+    """A compact FSLIM learn (unions and masks on the card, blocks on the
+    sweep kernels) against the CPU path: loss rtol 1e-4, nnz ±1%, at most
+    nnbrs coordinates per column."""
+    from slim_tpu_torch import SlimConfig, learn
+
+    mat = random_csr(rng, 400, 900, density=0.02, implicit=True)
+    m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices, None)
+    cfg = SlimConfig(l1r=0.2, l2r=0.5, nnbrs=8, simtype="cos",
+                     block_size=128, compact_threshold=256)
+    sweeps = (S.cd_sweep, S.cd_sweep_large)
+    launches = sum(w.launches for w in sweeps)
+    mg, sg = learn(m, cfg, device=dev)
+    assert sum(w.launches for w in sweeps) > launches and sg["unions"]
+    mc, sc = learn(m, cfg, device="cpu")
+    np.testing.assert_allclose(sg["loss"], sc["loss"], rtol=1e-4)
+    assert abs(sg["nnz"] - sc["nnz"]) <= 0.01 * sc["nnz"]
+    assert (mg.to_dense() > 0).sum(axis=0).max() <= 8

@@ -149,6 +149,11 @@ def test_densify_model_matches_slab_densify(rng):
 
 
 def test_wide_catalogue_not_ported():
+    """A 40,000-item catalogue (npad above SPARSE_PREDICT_THRESHOLD) is
+    served by the sparse route: an empty model gives empty lists."""
     m = CSR.empty(40000, 40000)
-    with pytest.raises(NotImplementedError):
-        predict_topn(m, CSR.empty(2, 40000), device="cpu")
+    hist = CSR.from_ijv([0, 0, 1], [5, 39999, 7], [1.0, 1.0, 1.0], nrows=2,
+                        ncols=40000)
+    ids, scores, counts = predict_topn(m, hist, device="cpu")
+    assert ids.shape == (2, 10) and (ids == -1).all()
+    assert (scores == 0).all() and (counts == 0).all()

@@ -76,7 +76,8 @@ def test_cli_learn_then_predict_reproduces_goldens(tmp_path, capsys):
 
 def test_cli_ordered_learns_as_slim(tmp_path, capsys):
     """--ordered with --nnbrs 0 is mtype oslim, which the reference learns
-    as slim (it never reads the flag): the synth goldens."""
+    as slim (it never reads the flag): the synth goldens; ofslim learns as
+    fslim."""
     mdl = str(tmp_path / "o.model")
     assert slim_learn.main(["-ifmt=ijv", "--ordered", "-device=cpu",
                             os.path.join(DATA, "synth-train.ijv"), mdl]) == 0
@@ -84,9 +85,13 @@ def test_cli_ordered_learns_as_slim(tmp_path, capsys):
                           capsys.readouterr().out).groups()
     np.testing.assert_allclose(float(loss), SYNTH_LOSS, rtol=1e-4)
     assert abs(int(nnz) - SYNTH_NNZ) <= SYNTH_NNZ * 0.01
-    with pytest.raises(NotImplementedError):        # ofslim: FSLIM
-        learn(_port(random_csr(np.random.default_rng(0), 20, 10)),
-              SlimConfig(nnbrs=5, ordered=1), device="cpu")
+    # with --nnbrs it is ofslim, which learns as fslim
+    mat = _port(random_csr(np.random.default_rng(0), 20, 10))
+    m_of, s_of = learn(mat, SlimConfig(nnbrs=5, ordered=1, shuffle=False),
+                       device="cpu")
+    m_f, s_f = learn(mat, SlimConfig(nnbrs=5, shuffle=False), device="cpu")
+    assert m_of == m_f and s_of["loss"] == s_f["loss"]
+    assert (m_of.to_dense() > 0).sum(axis=0).max() <= 5
 
 
 def test_ordered_warm_start_matches_slim():
@@ -130,8 +135,6 @@ def test_cli_rejects_unported_modes(tmp_path):
     trn = os.path.join(DATA, "synth-train.ijv")
     with pytest.raises(NotImplementedError):
         slim_learn.main(["-ifmt=ijv", "-dist=replicated", trn])
-    with pytest.raises(NotImplementedError):
-        slim_predict.main(["-ifmt=ijv", "m", trn, trn, trn])
 
 
 @pytest.mark.parametrize("implicit", [False, True])
