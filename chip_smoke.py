@@ -16,7 +16,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      two, pack (1024, 28672); then phase 7's compact FSLIM blocks, each
      column on its 50 cosine neighbours and ``has`` as the solver builds
      it: the whole-array sweep at B 1024, npad 2048 and 4096, and the
-     coordinate-major sweep at B 1024, npad 8192.  Each line gives the
+     coordinate-major sweep at B 1024, npad 8192; and a packed grid block
+     that straddles two points (half the columns at l1r = l2r = 2 with a
+     cap of 40, half at 1 with 60, each screened at its own l1r, the cap
+     reached in the sweep) on the whole-array sweep at B 512, npad 4096,
+     and on the coordinate-major sweep at B 1024, npad 28672, 38 of 56
+     groups active.  Each line gives the
      max error, the kernel's and the plain version's times, the bound (the
      larger of the bytes the function must move over 3.35 TB/s and its
      operations over the peak of their type) with what sets it, the
@@ -68,10 +73,33 @@ Phases (any failure exits non-zero, and no result line is printed):
      W would be 283 GB) and by COO, in agreement; the first 1,024 users
      against a scipy oracle (``checks.topn_oracle_mismatches``); users/s
      of both.
-  9. the kernels line.  Phases 3-8 (3b and 3c too) are each driven with
-     every launch counter set to 0 just before and read just after; each
-     path must launch its own kernels (PATH_KERNELS) and no other
-     wide-block sweep (phase 8: no kernel at all).  A kernel's
+  9. ADMM through api.learn at scripts/admm_bench.py's regime (500,000
+     users x 4,096 items, ~12.7M nnz, l1r = l2r = 2): W against the card's
+     float64 version (atol 2e-2, fit within 1e-3 rel), zero diagonal,
+     W > 0; factor and iterations timed against the iteration's FP32
+     bound; then the ML-1M shape against the JAX package's objective and
+     nnz.
+  10. mselect_grid(parallel=True) at the ML-1M shape over l1 in {0.5, 1,
+     2} x l2 in {1, 2} (test set a held-out draw): each point against a
+     cold learn of it on the card, (1, 1) against the JAX package's, HR /
+     ARHR against the sequential walk's, the same best pair; cols/s of the
+     packed pass and of the walk.
+  10b. estimate_grid_cd over (2, 2), (1, 1) on the ML-20M matrix (v4):
+     (1, 1) against the JAX package's, (2, 2) against phase 5's cold point.
+  11. the ML-20M learn with checkpoint_dir (a temporary directory): equal
+     to phase 4 within the gates; a third of the block files deleted and
+     the learn resumed, its sweeps and packs those of the deleted blocks
+     only, each re-solved block within CKPT_RESOLVE_ATOL of its first
+     solve; a full restore launches no sweep and no pack; the directory
+     removed.
+  12. the SLIM / SLIMatrix classes at the ML-1M shape from (user, item,
+     rating) triplets: train -> predict -> save_model / load_model ->
+     predict, against api.learn + get_topn; a learn with profile_dir
+     writes a trace that names the sweep kernel.
+  13. the kernels line.  Phases 3-12 (3b, 3c and 10b too) are each driven
+     with every launch counter set to 0 just before and read just after;
+     each path must launch its own kernels (PATH_KERNELS) and no other
+     (phase 8: no kernel at all).  A kernel's
      ``launches`` is the sum of its per-path counts (``launches_by_path``)
      in the unit of ``launch_unit``; errors and times come from phase 2, at
      the shape the path runs (``ms``/``plain_ms``) and at the other shapes
@@ -114,6 +142,25 @@ ML1M_SHAPE = (6040, 3706, 1_000_209)
 ML1M_OBJ, ML1M_NNZ = 388952.659, 886847
 ML1M_CFG = dict(optTol=1e-7, maxniters=10000, block_size=512)
 MSELECT_POINTS = [(2.0, 2.0), (1.0, 1.0)]
+# ADMM at scripts/admm_bench.py's regime: 500,000 users x 4,096 items, 20M
+# draws of zipf(1.25) from default_rng(0), binarised (~12.7M nnz)
+ADMM_SHAPE = dict(nrows=500_000, ncols=4096, draws=20_000_000, a=1.25)
+ADMM_CFG = dict(algo="admm", l1r=2.0, l2r=2.0)
+# ADMM at MovieLens-1M's shape, l1r = l2r = 1: the JAX package's objective
+# and model nnz on JAX-CPU, from
+#   JAX_PLATFORMS=cpu python -c "from slim_tpu import api;
+#     from slim_tpu.config import SlimConfig;
+#     from slim_tpu.datagen import synth_implicit;
+#     print(api.learn(synth_implicit(6040, 3706, 1_000_209, seed=0),
+#       SlimConfig(algo='admm', l1r=1.0, l2r=1.0))[1])"
+ML1M_ADMM_OBJ, ML1M_ADMM_NNZ = 392990.4375, 1778195
+# checkpoint resume (phase 11): the largest difference allowed between a
+# re-solved block's values and its first solve's (both on the card, same
+# seed, same kernels)
+CKPT_RESOLVE_ATOL = 0.0
+# the packed grid at the ML-1M shape (phase 10) and at ML-20M (10b)
+GRID_L1, GRID_L2 = (0.5, 1.0, 2.0), (1.0, 2.0)
+GRID_ML20M = [(2.0, 2.0), (1.0, 1.0)]
 # FSLIM: the JAX package's golden settings (tests/test_goldens.py:151-165);
 # at MovieLens-1M's shape its objective and model nnz on JAX-CPU (151
 # sweeps), from
@@ -129,7 +176,8 @@ ML1M_FSLIM_OBJ, ML1M_FSLIM_NNZ = 414806.0915, 103225
 # 100,000 users, 50 model entries per row on zipf(1.3) columns, 40-entry
 # zipf(1.2) histories, seed 7 (npad 266,240: a dense W would be 283 GB)
 SERVE_SHAPE = dict(n=262_144, nusers=100_000, nnz_row=50, hlen=40, seed=7)
-# the kernels each driven path must launch: the synth set (npad 384) and
+# the kernels each driven path must launch, and no other: the synth set
+# (npad 384) and
 # the ML-1M shape (npad 4096) solve on the whole-array row-major sweep, and
 # so do both ML-1M FSLIM learns (full width, and compact with every union
 # at most 2,048 wide); every ML-20M block on the wide-block sweep its
@@ -137,7 +185,9 @@ SERVE_SHAPE = dict(n=262_144, nusers=100_000, nnz_row=50, hlen=40, seed=7)
 # ML-20M FSLIM learns on the whole-array sweep (compact blocks whose union
 # is 4,096 or less) and on v4 (wider unions, and every block of the
 # SLIM_COMPACT_FRAC=0 learn); the 262k-item serving phase scores sparse
-# and launches none
+# and launches none; ADMM's products are plain matmuls (its Gram goes
+# through densify); the packed grids and the classes solve as the learns
+# of their shapes do
 PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
                 "ml1m": ("densify", "cd_sweep", "pack"),
                 "ml1m_fslim": ("densify", "cd_sweep", "pack"),
@@ -145,7 +195,12 @@ PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
                 "mselect": ("densify", "cd_sweep_v3", "pack"),
                 "eager": ("densify", "cd_sweep_eager", "pack"),
                 "fslim": ("densify", "cd_sweep", "cd_sweep_large", "pack"),
-                "serve": ()}
+                "serve": (),
+                "admm": ("densify",),
+                "grid": ("densify", "cd_sweep", "pack"),
+                "grid_ml20m": ("densify", "cd_sweep_large", "pack"),
+                "checkpoint": ("densify", "cd_sweep_large", "pack"),
+                "api": ("densify", "cd_sweep", "pack")}
 WIDE_SWEEPS = ("cd_sweep_large", "cd_sweep_v3", "cd_sweep_eager")
 _SWEEP_UNIT = ("sweeps: one wrapper call enqueues, per 128-wide chunk of "
                "the visit order, a group kernel (GS chain) and a "
@@ -164,10 +219,12 @@ LAUNCH_UNIT = {"densify": "kernel launches", "pack": "kernel launches",
                "cd_sweep_v3": _PANEL_UNIT, "cd_sweep_eager": _PANEL_UNIT}
 
 
-# H100 SXM peaks (NVIDIA's data sheet): memory rate, and the tensor-core
-# TF32 rate for float32 products (the sweeps' operands are float32)
+# H100 SXM peaks (NVIDIA's data sheet): memory rate, the tensor-core TF32
+# rate for float32 products (the sweeps' operands are float32), and the
+# FP32 rate off the tensor cores (ADMM's products, TF32 off)
 HBM_BPS = 3.35e12
 TF32_FLOPS = 495e12
+FP32_FLOPS = 67e12
 
 
 def bound(nbytes, flops=0.0, peak=TF32_FLOPS):
@@ -218,6 +275,20 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn):
+    """(fn(), its milliseconds by CUDA events): one call, for the plain
+    versions, each of which takes up to seconds and serves as the
+    reference of the same check."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def check(cond, msg):
@@ -351,15 +422,15 @@ def _cmp_sweep(got, ref):
     return ex, eq, torch.equal(got[2], ref[2])
 
 
-def check_sweep(ops):
+def check_sweep(ops, note=""):
     """The whole-array sweep (random ``has``, about 80% of the chunks
-    active; dead columns)."""
+    active; dead columns); ``note`` tags the shape."""
     from slim_tpu_torch.ops import cd_sweep as S
 
     args = _panel_args(ops, all_active=False)
     G, gj, has = args[0], args[1], args[-1]
     B = gj.shape[0]
-    ref = S.cd_sweep_plain(*args)
+    ref, plain_ms = once_ms(lambda: S.cd_sweep_plain(*args))
     ex, eq, same_live = _cmp_sweep(S.cd_sweep(*args), ref)
     check(ex <= 1e-4 and eq <= 1e-4 and same_live,
           f"sweep npad {G.shape[0]}: x err {ex}, q rel err {eq}, "
@@ -369,9 +440,8 @@ def check_sweep(ops):
                 source="slim_tpu_torch/csrc/sweep_panel.cu",
                 replaces="slim_tpu/ops/pallas_cd.py:58",
                 max_abs_err=ex, q_rel_err=eq,
-                ms=cuda_ms(lambda: S.cd_sweep(*args), 20),
-                plain_ms=cuda_ms(lambda: S.cd_sweep_plain(*args), 1),
-                shape=_shape(B, npad, args[2], has),
+                ms=cuda_ms(lambda: S.cd_sweep(*args), 20), plain_ms=plain_ms,
+                shape=_shape(B, npad, args[2], has) + note,
                 tol="x 1e-4, q 1e-4 rel")
     # per active chunk: its G rows, the propagation and the GS triangle
     return with_bound(line, 4.0 * 128 * npad * na + B * npad * 21.0,
@@ -389,17 +459,17 @@ def _large_args(ops, all_active):
             regs.T.contiguous(), perm, has)
 
 
-def check_sweep_large(ops, all_active):
+def check_sweep_large(ops, all_active, note=""):
     """The coordinate-major sweep on transposed operands: every group
     active (phase 4's shape: at B 1024 every group of every sweep has
-    work) or ``ops``'s own 38/56."""
+    work) or ``ops``'s own 38/56; ``note`` tags the shape."""
     from slim_tpu_torch.ops.cd_sweep import cd_sweep_large, cd_sweep_large_plain
 
     args = _large_args(ops, all_active)
     npad, B = args[1].shape
     has = args[-1]
-    ex, eq, same_live = _cmp_sweep(cd_sweep_large(*args),
-                                   cd_sweep_large_plain(*args))
+    ref, plain_ms = once_ms(lambda: cd_sweep_large_plain(*args))
+    ex, eq, same_live = _cmp_sweep(cd_sweep_large(*args), ref)
     check(ex <= 1e-4 and eq <= 1e-4 and same_live,
           f"large sweep: x err {ex}, q rel err {eq}, live equal {same_live}")
     line = dict(name="cd_sweep_large", route="cuda",
@@ -407,8 +477,8 @@ def check_sweep_large(ops, all_active):
                 replaces="slim_tpu/ops/pallas_cd.py:920",
                 max_abs_err=ex, q_rel_err=eq,
                 ms=cuda_ms(lambda: cd_sweep_large(*args), 3),
-                plain_ms=cuda_ms(lambda: cd_sweep_large_plain(*args), 1),
-                shape=_shape(B, npad, args[2], has),
+                plain_ms=plain_ms,
+                shape=_shape(B, npad, args[2], has) + note,
                 tol="x 1e-4, q 1e-4 rel")
     return with_bound(line, *group_sweep_work(npad, B, has.tolist()))
 
@@ -422,6 +492,27 @@ def _panel_args(ops, all_active):
         has = torch.ones_like(has)
     return (G, gj, act, x, q, live[:, None].contiguous(), diag2d,
             regs.contiguous(), perm, has)
+
+
+def mixed_regs(ops):
+    """``ops`` as a packed grid block that straddles two points: the first
+    half of the columns at l1r = l2r = 2 with a cap of 40 sweeps, the rest
+    at 1 with 60, each column screened at its own l1r; t0 = 39, so the end
+    of the sweep kills the first half at its cap and keeps the rest.  The
+    visit order and ``has`` stay the operands' own."""
+    from slim_tpu_torch.ops.cd_kernel import screen
+
+    G, gj, act, x, q, live, diag2d, regs, perm, has = ops
+    B = gj.shape[0]
+    first = torch.arange(B, device=gj.device) < B // 2
+    l12 = torch.where(first, 2.0, 1.0)
+    act = screen(gj, torch.arange(B, dtype=torch.int32, device=gj.device),
+                 l12)
+    x = torch.where(act, x, 0.0)
+    regs = torch.stack([l12, l12, torch.where(first, 40.0, 60.0),
+                        torch.full_like(l12, 39.0), regs[:, 4]], dim=1)
+    return (G, gj, act.to(torch.int8), x, x @ G, live, diag2d, regs, perm,
+            has)
 
 
 def profile_sweep(ops, row, out_dir, reps=3):
@@ -477,7 +568,8 @@ def check_sweep_panel(ops, variant, all_active):
     args = _panel_args(ops, all_active)
     G, gj, has = args[0], args[1], args[-1]
     B = gj.shape[0]
-    ex, eq, same_live = _cmp_sweep(kern(*args), plain(*args))
+    ref, plain_ms = once_ms(lambda: plain(*args))
+    ex, eq, same_live = _cmp_sweep(kern(*args), ref)
     check(ex <= 1e-4 and eq <= 1e-4 and same_live,
           f"{variant} sweep: x err {ex}, q rel err {eq}, "
           f"live equal {same_live}")
@@ -486,8 +578,7 @@ def check_sweep_panel(ops, variant, all_active):
                source="slim_tpu_torch/csrc/sweep_panel.cu",
                replaces=f"slim_tpu/ops/pallas_cd.py:{line}",
                max_abs_err=ex, q_rel_err=eq,
-               ms=cuda_ms(lambda: kern(*args), 3),
-               plain_ms=cuda_ms(lambda: plain(*args), 1),
+               ms=cuda_ms(lambda: kern(*args), 3), plain_ms=plain_ms,
                shape=_shape(B, npad, args[2], has),
                tol="x 1e-4, q 1e-4 rel")
     return with_bound(out, *group_sweep_work(npad, B, has.tolist()))
@@ -652,11 +743,20 @@ def launch_wrappers():
             "cd_sweep_eager": S.cd_sweep_eager, "pack": pack}
 
 
+def _launch_counts():
+    """A snapshot of every kernel's launch counter."""
+    return {k: w.launches for k, w in launch_wrappers().items()}
+
+
+def _since(counts0):
+    """The launches made since the snapshot ``counts0``, by kernel."""
+    return {k: w.launches - counts0[k] for k, w in launch_wrappers().items()}
+
+
 def _learn_record(stats, counts0):
     """The printed record of one learn, with the launches it added to
     ``counts0`` (a snapshot of the counters)."""
-    counts = {k: w.launches - counts0[k]
-              for k, w in launch_wrappers().items()}
+    counts = _since(counts0)
     return dict(learn_s=stats["learn_s"], phases=stats["phases"],
                 sweeps=stats["sweeps"], niters=stats["niters"],
                 union_widths=stats.get("union_widths"),
@@ -667,7 +767,7 @@ def _learn_record(stats, counts0):
 def _fslim_learn(dev, trn, cfg):
     from slim_tpu_torch import learn
 
-    counts0 = {k: w.launches for k, w in launch_wrappers().items()}
+    counts0 = _launch_counts()
     model, stats = learn(trn, cfg, device=dev)
     col_nnz = np.diff(model.transpose().indptr)
     check(col_nnz.max() <= cfg.nnbrs,
@@ -1025,6 +1125,312 @@ def run_eager(dev, trn):
     return out
 
 
+def admm_workload():
+    """scripts/admm_bench.py's workload (ADMM_SHAPE), built here with the
+    port's CSR."""
+    from slim_tpu_torch.types import CSR
+
+    nrows, ncols, draws = (ADMM_SHAPE[k] for k in ("nrows", "ncols",
+                                                   "draws"))
+    rng = np.random.default_rng(0)
+    users = rng.integers(0, nrows, draws)
+    # the script draws 2 x draws and keeps the first draws: the same values
+    items = rng.zipf(ADMM_SHAPE["a"], draws) % ncols
+    # binarised: repeated (user, item) draws collapse; rows ascend by key
+    keys = np.unique(users * ncols + items)
+    indptr = np.zeros(nrows + 1, np.int64)
+    np.cumsum(np.bincount(keys // ncols, minlength=nrows), out=indptr[1:])
+    return CSR.from_arrays(nrows, ncols, indptr, keys % ncols, None)
+
+
+def _fit64(T, W):
+    """||R - RW||² from the Gram identity, in float64 on the card."""
+    T, W = T.double(), W.double()
+    return (torch.trace(T) - 2.0 * (T * W.T).sum()
+            + (W * (T @ W)).sum()).item()
+
+
+def run_admm(dev):
+    """Phase 9: ADMM through api.learn at scripts/admm_bench.py's regime,
+    held to the card's float64 version (tests/test_admm.py's bar: W atol
+    2e-2, fit within 1e-3 rel), zero diagonal, W >= 0; the factor and the
+    iterations timed on the same Gram against the iteration's bound (one
+    2 npad^3 product over the FP32 peak: pin_f32 forbids TF32); then the
+    ML-1M shape against the JAX package's objective and nnz."""
+    from slim_tpu_torch import SlimConfig, learn
+    from slim_tpu_torch.datagen import synth_implicit
+    from slim_tpu_torch.ops.gram import compute_gram
+    from slim_tpu_torch.solvers import admm as A
+
+    trn, gen_s = _timed(admm_workload)
+    cfg = SlimConfig(dbglvl=2, **ADMM_CFG)
+    model, stats = learn(trn, cfg, device=dev)
+    n = trn.ncols
+    npad = A._round_up(n + 1, 128)
+    T = compute_gram(trn, "device", pad_to=npad, device=dev)
+    (P, Am), factor_s = _timed(lambda: A.admm_factor(T, cfg.l2r))
+    _, iter_s = _timed(lambda: A.admm_iterate(P, Am, cfg.l1r))
+    del P, Am
+    W64 = A.admm_solve_f64(T, cfg.l1r, cfg.l2r)[:n, :n]
+    W64 = torch.where(W64 > 0, W64, 0.0)
+    W = torch.from_numpy(model.to_dense()).to(dev)
+    Tn = T[:n, :n]
+    fit, fit64 = _fit64(Tn, W), _fit64(Tn, W64)
+    out = dict(nrows=trn.nrows, ncols=n, nnz=trn.nnz, datagen_s=gen_s,
+               learn_s=stats["learn_s"], phases=stats["phases"],
+               objective=stats["loss"], model_nnz=stats["nnz"],
+               factor_s=factor_s, iterate_s=iter_s,
+               ms_per_iteration=1e3 * iter_s / A.MAXITERS,
+               iteration_bound_ms=2.0 * npad ** 3 / FP32_FLOPS * 1e3,
+               max_abs_err_f64=(W.double() - W64).abs().max().item(),
+               fit=fit, fit_f64=fit64,
+               max_abs_diag=torch.diagonal(W).abs().max().item())
+    del T, W, W64, Tn
+    ml1m = synth_implicit(*ML1M_SHAPE, seed=0)
+    _, st = learn(ml1m, SlimConfig(algo="admm", l1r=1.0, l2r=1.0), device=dev)
+    out["ml1m"] = dict(learn_s=st["learn_s"], phases=st["phases"],
+                       objective=st["loss"], model_nnz=st["nnz"])
+    print("admm:", json.dumps(out))
+    check(out["max_abs_err_f64"] <= 2e-2,
+          f"ADMM W differs from float64 by {out['max_abs_err_f64']}")
+    check(abs(fit - fit64) <= 1e-3 * fit64, f"ADMM fit {fit} vs {fit64}")
+    check(out["max_abs_diag"] < 1e-3, "ADMM diagonal not zero")
+    check(model.nnz and model.values().min() > 0, "ADMM model has W <= 0")
+    _check_same_fit("ML-1M ADMM", st, ML1M_ADMM_OBJ, ML1M_ADMM_NNZ)
+    return out
+
+
+def run_grid(dev):
+    """Phase 10: mselect_grid(parallel=True) at the ML-1M shape over
+    GRID_L1 x GRID_L2, the test set a held-out draw.  Each point against a
+    cold estimate_model_cd of it on the card (objective rtol 1e-4, nnz
+    ±1%), the (1, 1) point against the JAX package's; HR / ARHR within
+    ±0.015 / ±0.010 of the sequential walk over the same points, the same
+    best pair; cols/s of both."""
+    from slim_tpu_torch import SlimConfig
+    from slim_tpu_torch.datagen import synth_implicit
+    from slim_tpu_torch.mselect import mselect_grid
+    from slim_tpu_torch.solvers.cd import estimate_model_cd
+
+    trn = synth_implicit(*ML1M_SHAPE, seed=0)
+    tst = synth_implicit(trn.nrows, trn.ncols, trn.nrows, seed=1)
+    cfg = SlimConfig(**ML1M_CFG)
+    counts0 = _launch_counts()
+    par = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, parallel=True,
+                       device=dev)
+    packed_launches = _since(counts0)
+    seq = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, device=dev)
+    cols = len(par["results"]) * trn.ncols
+    seq_s = sum(r["time"] for r in seq["results"])
+    out = dict(points=len(par["results"]), cols=cols,
+               grid_s=par["grid_time"], cols_per_s=cols / par["grid_time"],
+               sequential_s=seq_s, sequential_cols_per_s=cols / seq_s,
+               packed_launches={k: v for k, v in packed_launches.items()
+                                if v},
+               best=(par["bestl1HR"], par["bestl2HR"]),
+               best_sequential=(seq["bestl1HR"], seq["bestl2HR"]))
+    pts = []
+    for rp, rs in zip(par["results"], seq["results"]):
+        pt = (rp["l1r"], rp["l2r"])
+        _, cold = estimate_model_cd(trn, cfg.replace(l1r=pt[0], l2r=pt[1]),
+                                    device=dev)
+        pts.append(dict(l1r=pt[0], l2r=pt[1], objective=rp["loss"],
+                        model_nnz=rp["nnz"], sweeps=rp["sweeps"],
+                        niters=rp["niters"], hr=rp["hr"], arhr=rp["arhr"],
+                        cold_objective=cold["loss"], cold_nnz=cold["nnz"],
+                        sequential_hr=rs["hr"], sequential_arhr=rs["arhr"]))
+    out["per_point"] = pts
+    print("grid:", json.dumps(out))
+    check(packed_launches["cd_sweep"] and packed_launches["pack"],
+          f"the packed grid launched {packed_launches}")
+    for pt in pts:
+        tag = f"grid ({pt['l1r']}, {pt['l2r']})"
+        _check_same_fit(tag, dict(loss=pt["objective"], nnz=pt["model_nnz"]),
+                        pt["cold_objective"], pt["cold_nnz"])
+        check(abs(pt["hr"] - pt["sequential_hr"]) <= 0.015
+              and abs(pt["arhr"] - pt["sequential_arhr"]) <= 0.010,
+              f"{tag} HR / ARHR off the sequential walk: {pt}")
+        if (pt["l1r"], pt["l2r"]) == (1.0, 1.0):
+            _check_same_fit(tag, dict(loss=pt["objective"],
+                                      nnz=pt["model_nnz"]), ML1M_OBJ, ML1M_NNZ)
+    check(out["best"] == out["best_sequential"],
+          f"grid best {out['best']} vs sequential {out['best_sequential']}")
+    return out
+
+
+def run_grid_ml20m(dev, trn, cold22):
+    """Phase 10b: estimate_grid_cd over GRID_ML20M on the ML-20M matrix
+    (every block on v4): (1, 1) against the JAX package's objective and
+    nnz, (2, 2) against phase 5's cold (2, 2) point."""
+    from slim_tpu_torch import SlimConfig
+    from slim_tpu_torch.solvers.cd import estimate_grid_cd
+
+    (res, t) = _timed(lambda: estimate_grid_cd(
+        trn, SlimConfig(**ML20M_CFG), GRID_ML20M, device=dev))
+    out = dict(grid_s=t, cols_per_s=len(GRID_ML20M) * trn.ncols / t,
+               per_point=[dict(l1r=pt[0], l2r=pt[1], objective=st["loss"],
+                               model_nnz=st["nnz"], sweeps=st["sweeps"],
+                               niters=st["niters"])
+                          for pt, (_, st) in zip(GRID_ML20M, res)])
+    print("grid_ml20m:", json.dumps(out))
+    check_gates("grid (1, 1)", res[1][1])
+    _check_same_fit("grid (2, 2)", res[0][1], cold22["objective"],
+                    cold22["model_nnz"])
+    return out
+
+
+def _block_files(ckdir):
+    """{block: path} of a checkpoint directory."""
+    import glob
+
+    return {int(f.rsplit("_", 1)[1][:-4]): f
+            for f in glob.glob(os.path.join(ckdir, "cdblk_*.npz"))}
+
+
+def run_checkpoint(dev, trn, phase4):
+    """Phase 11: the ML-20M learn with checkpoint_dir, against phase 4;
+    a third of the block files deleted and the learn resumed (the sweep
+    and pack counters show work for those blocks only; the model equal to
+    the first: restored blocks exactly, re-solved blocks measured); a full
+    restore (no sweep, no pack); the directory removed."""
+    import shutil
+    import tempfile
+
+    from slim_tpu_torch import SlimConfig, learn
+
+    ckdir = tempfile.mkdtemp(prefix="slim_ckpt_")
+    cfg = SlimConfig(l1r=1.0, l2r=1.0, dbglvl=2, checkpoint_dir=ckdir,
+                     **ML20M_CFG)
+    try:
+        runs = []
+
+        def one():
+            c0 = _launch_counts()
+            model, stats = learn(trn, cfg, device=dev)
+            runs.append(dict(learn_s=stats["learn_s"], phases=stats["phases"],
+                             sweeps=stats["sweeps"], objective=stats["loss"],
+                             model_nnz=stats["nnz"],
+                             launches={k: v for k, v in _since(c0).items()
+                                       if v}))
+            return model, stats
+
+        m1, s1 = one()
+        check_gates("checkpointed learn", s1)
+        _check_same_fit("checkpointed learn", s1, phase4["objective"],
+                        phase4["model_nnz"])
+        files = _block_files(ckdir)
+        lost = sorted(files)[::3]
+        before = {}
+        for b in lost:
+            with np.load(files[b]) as z:
+                before[b] = {k: z[k] for k in z.files}
+            os.remove(files[b])
+        m2, _ = one()
+        diff = []
+        for b in lost:
+            with np.load(_block_files(ckdir)[b]) as z:
+                same = all(np.array_equal(z[k], before[b][k])
+                           for k in ("coord", "target"))
+                diff.append(float(np.abs(z["vals"] - before[b]["vals"]).max())
+                            if same else float("inf"))
+        m3, _ = one()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    bit_equal = m2 == m1 and np.array_equal(m2.values(), m1.values())
+    out = dict(blocks=len(files), lost=len(lost), runs=runs,
+               resolved_max_abs_diff=max(diff), resolved_bit_equal=bit_equal,
+               write_s=runs[0]["phases"].get("checkpoint"),
+               restore_s=runs[2]["phases"].get("restore"))
+    print("checkpoint:", json.dumps(out))
+    r1, r2, r3 = runs
+    want = sum(int(before[b]["sweeps"]) for b in lost)
+    check(r2["launches"].get("cd_sweep_large", 0) == want
+          and r2["launches"].get("pack", 0) == len(lost),
+          f"resume launched {r2['launches']}, the lost blocks took {want} "
+          f"sweeps in {len(lost)} blocks")
+    check(not any(r3["launches"].get(k) for k in
+                  ("cd_sweep", "pack") + WIDE_SWEEPS),
+          f"full restore launched {r3['launches']}")
+    check(max(diff) <= CKPT_RESOLVE_ATOL,
+          f"re-solved blocks differ by {max(diff)}")
+    check(m3 == m2 and np.array_equal(m3.values(), m2.values()),
+          "full restore differs from the resumed model")
+    return out
+
+
+def run_api(dev):
+    """Phase 12: the classes at the ML-1M shape: SLIMatrix from (user,
+    item, rating) triplets, SLIM.train -> predict -> save_model /
+    load_model -> predict, against api.learn + get_topn on the same matrix
+    (``checks.ranked_mismatches``); the loaded model equal to the saved
+    one (structure and labels exactly, values to the csr text's 6 digits,
+    1e-5 rel); a learn with profile_dir writes a trace that names the
+    sweep kernel."""
+    import glob
+    import shutil
+    import tempfile
+
+    from slim_tpu_torch import SLIM, SLIMatrix, SlimConfig, get_topn, learn
+    from slim_tpu_torch.checks import ranked_mismatches
+    from slim_tpu_torch.datagen import synth_implicit
+
+    mat = synth_implicit(*ML1M_SHAPE, seed=0)
+    rows = np.repeat(np.arange(mat.nrows), np.diff(mat.indptr))
+    trip = np.stack([rows + 1, mat.indices + 1, np.ones(mat.nnz)], axis=1)
+    (sm, mat_s) = _timed(lambda: SLIMatrix(trip))
+    cfg = SlimConfig(l1r=1.0, l2r=1.0, **ML1M_CFG)
+    tmp = tempfile.mkdtemp(prefix="slim_api_")
+    try:
+        model = SLIM()
+        _, train_s = _timed(lambda: model.train(cfg, sm, device=dev))
+        (got, pred_s) = _timed(lambda: model.predict(
+            sm, nrcmds=10, returnscores=True, device=dev))
+        users = list(sm.user2id)
+        ids = np.stack([got[0][u] for u in users])
+        sc = np.stack([got[1][u] for u in users])
+        fm, _ = learn(sm.mat, cfg, device=dev)
+        fids, fsc, fcnt = get_topn(fm, sm.mat, nrcmds=10, device=dev)
+        flab = np.where(fids >= 0, sm.id2item[np.maximum(fids, 0)], -1)
+        agree = ranked_mismatches(ids, sc, flab, fsc, fcnt)
+        mfile, mapfile = (os.path.join(tmp, f) for f in ("m.csr", "m.map"))
+        model.save_model(mfile, mapfile)
+        loaded = SLIM()
+        loaded.load_model(mfile, mapfile)
+        a, b = model.model, loaded.model
+        same = a.shape == b.shape and np.array_equal(a.indptr, b.indptr) \
+            and np.array_equal(a.indices, b.indices) \
+            and np.array_equal(loaded.id2item, model.id2item)
+        rel = float(np.abs(b.values() / a.values() - 1.0).max()) \
+            if same else float("inf")
+        again = loaded.predict(sm, nrcmds=10, returnscores=True, device=dev)
+        reload_agree = ranked_mismatches(
+            np.stack([again[0][u] for u in users]),
+            np.stack([again[1][u] for u in users]), ids, sc)
+        prof = os.path.join(tmp, "prof")
+        learn(sm.mat, cfg.replace(profile_dir=prof), device=dev)
+        trace = open(glob.glob(os.path.join(prof, "*.json"))[0]).read()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = dict(users=sm.nUsers, items=sm.nItems, slimatrix_s=mat_s,
+               train_s=train_s, predict_s=pred_s,
+               objective=model.stats["loss"], model_nnz=model.model.nnz,
+               ids_differ=agree[0], ids_differ_off_near_ties=agree[1],
+               reload_ids_differ_off_near_ties=reload_agree[1],
+               loaded_structure_equal=bool(same),
+               loaded_max_rel_diff=rel, trace_bytes=len(trace),
+               trace_names_sweep="group_kernel" in trace)
+    print("api:", json.dumps(out))
+    check(agree[1] == 0, f"class predict differs from get_topn: {agree}")
+    check(rel <= 1e-5, "the loaded model differs from the saved one "
+          "beyond the csr text's 6 digits")
+    check(reload_agree[1] == 0, f"predict after load differs: {reload_agree}")
+    check(out["trace_names_sweep"], "the profile trace names no sweep kernel")
+    _check_same_fit("class ML-1M learn", dict(loss=out["objective"],
+                                              nnz=out["model_nnz"]),
+                    ML1M_OBJ, ML1M_NNZ)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=["kernels", "all"], default="all",
@@ -1072,7 +1478,11 @@ def main(argv=None):
                check_sweep_panel(large, "v3", all_active=True),
                check_sweep_panel(large, "eager", all_active=False),
                check_sweep_panel(large, "eager", all_active=True),
-               check_pack(dev, rng)]
+               check_pack(dev, rng),
+               # a packed grid block straddling two points (phases 10, 10b)
+               check_sweep(mixed_regs(row[1]), note=" mixed regs"),
+               check_sweep_large(mixed_regs(large), all_active=False,
+                                 note=" mixed regs")]
     if args.profile is not None:
         profile_sweep(large, row[1], args.profile)
     del large, row
@@ -1103,7 +1513,14 @@ def main(argv=None):
                                               results["ml20m"]["niters"])),
               ("eager", lambda: run_eager(dev, trn)),
               ("fslim", lambda: run_fslim(dev, trn)),
-              ("serve", lambda: run_serve(dev)))
+              ("serve", lambda: run_serve(dev)),
+              ("admm", lambda: run_admm(dev)),
+              ("grid", lambda: run_grid(dev)),
+              ("grid_ml20m", lambda: run_grid_ml20m(
+                  dev, trn, results["mselect"][0])),
+              ("api", lambda: run_api(dev)),
+              ("checkpoint", lambda: run_checkpoint(dev, trn,
+                                                    results["ml20m"])))
     by_path = {}
     for path, drive in drives:
         for w in wrappers.values():
@@ -1114,11 +1531,9 @@ def main(argv=None):
         print(f"launches {path}:", json.dumps(counts), flush=True)
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
         check(not missing, f"{path} path launched no {missing}: {counts}")
-        stray = [k for k in WIDE_SWEEPS
-                 if k not in PATH_KERNELS[path] and counts[k]]
+        stray = [k for k, v in counts.items()
+                 if v and k not in PATH_KERNELS[path]]
         check(not stray, f"{path} path launched {stray}: {counts}")
-        check(PATH_KERNELS[path] or not any(counts.values()),
-              f"{path} path launched a kernel: {counts}")
         lap(path)
 
     by_name = {}

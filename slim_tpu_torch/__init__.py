@@ -1,10 +1,11 @@
 """slim_tpu_torch: the PyTorch / CUDA port of slim_tpu (Sparse LInear
 Methods top-N recommendation, Ning & Karypis, ICDM 2011).
 
-Single-device CD learn (SLIM and FSLIM), warm-started model selection,
-top-N on dense, sparse and COO routes, 1-vs-k and candidate scores, and
-HR/ARHR evaluation, with the JAX package's Pallas kernels replaced by
-hand-written Hopper kernels (csrc/).  Imports torch, numpy and scipy,
+Single-device CD (SLIM and FSLIM) and ADMM learning with checkpoint /
+resume, warm-started and packed-grid model selection, top-N on dense,
+sparse and COO routes, 1-vs-k and candidate scores, HR/ARHR evaluation
+and the ``SLIM`` / ``SLIMatrix`` classes, with the JAX package's Pallas
+kernels replaced by hand-written Hopper kernels (csrc/).  Imports torch, numpy and scipy,
 never jax.
 
 Quick start::
@@ -17,7 +18,7 @@ Quick start::
 from .config import (SlimConfig, SLIM_OK, SLIM_ERROR, SLIM_DBG_INFO,
                      SLIM_DBG_TIME, SLIM_DBG_PROGRESS)
 from .types import CSR
-from .api import learn, get_topn, read_model, write_model
+from .api import SLIM, SLIMatrix, learn, get_topn, read_model, write_model
 from .eval import determine_head_tail, evaluate_topn, EvalResult
 from .predict import predict_topn, predict_topn_1vsk
 from . import io
@@ -25,7 +26,8 @@ from . import io
 __version__ = "0.1.0"
 
 __all__ = [
-    "SlimConfig", "CSR", "learn", "get_topn", "read_model", "write_model",
+    "SlimConfig", "CSR", "SLIM", "SLIMatrix", "learn", "get_topn",
+    "read_model", "write_model",
     "determine_head_tail", "evaluate_topn", "EvalResult", "predict_topn",
     "predict_topn_1vsk",
     "io", "SLIM_OK", "SLIM_ERROR", "SLIM_DBG_INFO", "SLIM_DBG_TIME",

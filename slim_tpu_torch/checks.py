@@ -17,8 +17,10 @@ def ranked_mismatches(ids, sc, ids_ref, sc_ref, counts_ref=None, rtol=1e-5):
     ``rtol`` rel of its own, or at the list's last counted slot
     (``counts_ref``, default the full width) where the two lists' scores
     are within ``rtol`` rel (the item one past the reference's list
-    near-ties it).  Exact ties are never forgiven: every route orders them
-    by the lowest id (or position)."""
+    near-ties it) and differ, or are equal with the lower id in ``ids``
+    (the reference puts the lowest id first among exact ties, so its
+    higher id won a near tie there).  Exact ties are never forgiven: every
+    route orders them by the lowest id (or position)."""
     ids, sc = np.asarray(ids), np.asarray(sc)
     ids_ref, sc_ref = np.asarray(ids_ref), np.asarray(sc_ref)
     mism = ids != ids_ref
@@ -31,7 +33,8 @@ def ranked_mismatches(ids, sc, ids_ref, sc_ref, counts_ref=None, rtol=1e-5):
     cnt = np.full(sc_ref.shape[0], k) if counts_ref is None \
         else np.asarray(counts_ref)
     last = np.arange(k)[None, :] == (cnt[:, None] - 1)
-    near |= last & np.isclose(sc, sc_ref, rtol=rtol, atol=0) & (sc != sc_ref)
+    near |= last & np.isclose(sc, sc_ref, rtol=rtol, atol=0) \
+        & ((sc != sc_ref) | (ids < ids_ref))
     return int(mism.sum()), int((mism & ~near).sum())
 
 

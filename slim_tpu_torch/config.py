@@ -37,11 +37,12 @@ class SlimConfig:
     """Training configuration.
 
     ``block_size`` (item columns per solve), ``gram`` ("auto" routes the
-    Gram to the card whenever the solve runs there, "host" forces scipy)
-    and ``compact_threshold`` act in this port.  ``solver_dtype``,
-    ``kernel``, ``checkpoint_dir``, ``profile_dir`` and ``donate_gram`` are
-    accepted and ignored so that a JAX-package config round-trips;
-    ``nthreads`` only exists for API compatibility.
+    Gram to the card whenever the solve runs there, "host" forces scipy),
+    ``compact_threshold``, ``checkpoint_dir`` (per-block solve files,
+    resumed from) and ``profile_dir`` (a torch.profiler Chrome trace of
+    the learn) act in this port.  ``solver_dtype``, ``kernel`` and
+    ``donate_gram`` are accepted and ignored so that a JAX-package config
+    round-trips; ``nthreads`` only exists for API compatibility.
     """
 
     # regularisation / optimisation (reference api.c:42-52 defaults)
@@ -74,8 +75,8 @@ class SlimConfig:
                                 # compacted union-active-set space (keeps
                                 # per-sweep cost O(K_active²) instead of
                                 # O(npad²) on huge item catalogues)
-    checkpoint_dir: str = ""    # accepted, ignored (checkpoints not ported)
-    profile_dir: str = ""       # accepted, ignored (see class docstring)
+    checkpoint_dir: str = ""    # "" = off; else resumable per-block files
+    profile_dir: str = ""       # "" = off; else torch.profiler trace output
     shuffle: bool = True        # shuffled coordinate order per sweep (cd.c:115)
     donate_gram: bool = False   # accepted, ignored
 

@@ -1,15 +1,17 @@
-"""Model selection: warm-started sweeps over (l1r, l2r) (port of
-slim_tpu/mselect.py, single device).
+"""Model selection: sweeps over (l1r, l2r) (port of slim_tpu/mselect.py,
+single device).
 
 * :func:`mselect_pairs` walks an explicit pair list, the CLI behaviour
   (src/programs/slim_mselect.c:99-203);
 * :func:`mselect_grid` walks the nl1 x nl2 cross product, l2 inner, the
-  Python package's behaviour (pyapi.c:214-412).
+  Python package's behaviour (pyapi.c:214-412), or with ``parallel=True``
+  solves every point in one packed pass (``estimate_grid_cd``).
 
-The Gram is computed once and shared by every point.  Each point's learn
-warm-starts from the previous point's model; the solver keeps that model
-on the device as a pack, which serves the point's evaluation and then the
-next point's warm start (only its dense form is dropped in between).
+The Gram is computed once and shared by every point.  With CD each
+point's learn warm-starts from the previous point's model; the solver
+keeps that model on the device as a pack, which serves the point's
+evaluation and then the next point's warm start (only its dense form is
+dropped in between).  ADMM points solve cold on the shared Gram.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from .config import SlimConfig
 from .eval import determine_head_tail, evaluate_topn
 from .ops.gram import compute_gram
 from .predict import SPARSE_PREDICT_THRESHOLD, predict_topn
-from .solvers.cd import bucket_npad, estimate_model_cd
+from .solvers.admm import estimate_model_admm
+from .solvers.cd import bucket_npad, estimate_grid_cd, estimate_model_cd
 from .types import CSR
 from .utils import resolve_device
 
@@ -34,13 +37,55 @@ def _best():
             "best_model_hr": None, "best_model_ar": None}
 
 
+def _aligned(train: CSR, test: CSR):
+    """train and test over one column space (slim_mselect.c:52-54,
+    pyapi.c:256-258), and the head/tail marker of its items."""
+    train = train.infer_ncols()
+    test = test.infer_ncols()
+    ncols = max(train.ncols, test.ncols)
+    train = train.with_ncols(ncols)
+    return train, test.with_ncols(ncols), determine_head_tail(train, ncols)
+
+
+def _evaluate(model, train, test, fmarker, nrcmds, W_dev, dev):
+    """(eval record, predict s, metric s) of one point's model."""
+    t0 = time.perf_counter()
+    ids, _, counts = predict_topn(model, train, nrcmds=nrcmds, W_dev=W_dev,
+                                  device=dev)
+    t_pred = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = evaluate_topn(ids, counts, test, fmarker, require_test_items=True)
+    return ev, t_pred, time.perf_counter() - t0
+
+
+def _record(l1, l2, model, ev, stats, **times):
+    rec = {"l1r": float(l1), "l2r": float(l2), "nnz": model.nnz,
+           "hr": ev.hr, "hr_head": ev.hr_head, "hr_tail": ev.hr_tail,
+           "arhr": ev.arhr, **times,
+           "nvalid": ev.nvalid, "nvalid_head": ev.nvalid_head,
+           "nvalid_tail": ev.nvalid_tail}
+    rec.update({k: stats[k] for k in ("loss", "niters", "sweeps")
+                if k in stats})
+    return rec
+
+
+def _track(best, l1, l2, ev, model):
+    """Best-by-HR and best-by-ARHR, the first point winning ties."""
+    if ev.hr > best["bestHRHR"]:
+        best.update(bestHRHR=ev.hr, bestARHR=ev.arhr, bestl1HR=float(l1),
+                    bestl2HR=float(l2), best_model_hr=model)
+    if ev.arhr > best["bestARAR"]:
+        best.update(bestHRAR=ev.hr, bestARAR=ev.arhr, bestl1AR=float(l1),
+                    bestl2AR=float(l2), best_model_ar=model)
+
+
 def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
                  keep_models: bool = False, point_callback=None, mesh=None,
                  device=None):
-    """Walk ``points`` = [(l1, l2), ...] with warm starts on ``device``;
-    returns the per-point records plus the best-by-HR / best-by-ARHR
-    summaries.  Each record carries the JAX package's keys and the
-    solver's ``loss``, ``niters`` and ``sweeps``.
+    """Walk ``points`` = [(l1, l2), ...] on ``device`` (CD with warm
+    starts, or ADMM); returns the per-point records plus the best-by-HR /
+    best-by-ARHR summaries.  Each record carries the JAX package's keys and
+    the solver's ``loss`` (and for CD ``niters`` and ``sweeps``).
     ``point_callback(rec, model)`` runs after each evaluation, as in the
     JAX package; its ``rec`` is a copy of the point's record with
     ``rec["pack"]``, the retained
@@ -48,22 +93,14 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
     if mesh is not None:
         raise NotImplementedError("mesh-distributed mselect is not ported "
                                   "yet (ROADMAP Queue 1: parallel/)")
-    if cfg.algo != "cd":
-        raise NotImplementedError(f"mselect with algo {cfg.algo!r} is not "
-                                  "ported yet")
     dev = resolve_device(device)
-    train = train.infer_ncols()
-    test = test.infer_ncols()
-    # align column spaces (slim_mselect.c:52-54, pyapi.c:256-258)
-    ncols = max(train.ncols, test.ncols)
-    train = train.with_ncols(ncols)
-    test = test.with_ncols(ncols)
-    fmarker = determine_head_tail(train, ncols)
-    npad = bucket_npad(ncols)
+    train, test, fmarker = _aligned(train, test)
+    npad = bucket_npad(train.ncols)
     gram = compute_gram(train, cfg.gram, pad_to=npad, device=dev)
+    admm = cfg.algo == "admm"
     # the retained pack serves the dense predict route only, so the model
     # stays on the device whenever that route takes the catalogue
-    keep_dev = npad <= SPARSE_PREDICT_THRESHOLD
+    keep_dev = not admm and npad <= SPARSE_PREDICT_THRESHOLD
 
     results = []
     best = _best()
@@ -71,29 +108,23 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
     for (l1, l2) in points:
         pcfg = cfg.replace(l1r=float(l1), l2r=float(l2))
         t0 = time.perf_counter()
-        model, stats = estimate_model_cd(train, pcfg, imodel=model,
-                                         gram=gram,
-                                         keep_device_model=keep_dev,
-                                         warm_pack=pack, device=dev)
+        if admm:
+            model, stats = estimate_model_admm(train, pcfg, gram=gram,
+                                               device=dev)
+        else:
+            model, stats = estimate_model_cd(train, pcfg, imodel=model,
+                                             gram=gram,
+                                             keep_device_model=keep_dev,
+                                             warm_pack=pack, device=dev)
         t_learn = time.perf_counter() - t0
         pack = stats.pop("W_dev", None)
-        t0 = time.perf_counter()
-        ids, _, counts = predict_topn(model, train, nrcmds=cfg.nrcmds,
-                                      W_dev=pack, device=dev)
-        t_pred = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ev = evaluate_topn(ids, counts, test, fmarker,
-                           require_test_items=True)
-        t_metric = time.perf_counter() - t0
+        ev, t_pred, t_metric = _evaluate(model, train, test, fmarker,
+                                         cfg.nrcmds, pack, dev)
         if pack is not None:
             pack.free_dense()
-        rec = {"l1r": float(l1), "l2r": float(l2), "nnz": model.nnz,
-               "hr": ev.hr, "hr_head": ev.hr_head, "hr_tail": ev.hr_tail,
-               "arhr": ev.arhr, "time": t_learn, "time_kind": "per_point",
-               "time_predict": t_pred, "time_metric": t_metric,
-               "nvalid": ev.nvalid, "nvalid_head": ev.nvalid_head,
-               "nvalid_tail": ev.nvalid_tail, "loss": stats["loss"],
-               "niters": stats["niters"], "sweeps": stats["sweeps"]}
+        rec = _record(l1, l2, model, ev, stats, time=t_learn,
+                      time_kind="per_point", time_predict=t_pred,
+                      time_metric=t_metric)
         if keep_models:
             rec["model"] = model
         results.append(rec)
@@ -105,14 +136,7 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
             t_learn + t_pred + t_metric, t_learn, t_pred, t_metric)
         if point_callback is not None:
             point_callback(dict(rec, pack=pack), model)
-        if ev.hr > best["bestHRHR"]:
-            best.update(bestHRHR=ev.hr, bestARHR=ev.arhr,
-                        bestl1HR=float(l1), bestl2HR=float(l2),
-                        best_model_hr=model)
-        if ev.arhr > best["bestARAR"]:
-            best.update(bestHRAR=ev.hr, bestARAR=ev.arhr,
-                        bestl1AR=float(l1), bestl2AR=float(l2),
-                        best_model_ar=model)
+        _track(best, l1, l2, ev, model)
     best["results"] = results
     return best
 
@@ -128,10 +152,39 @@ def mselect_pairs(train: CSR, test: CSR, cfg: SlimConfig, pairs,
 def mselect_grid(train: CSR, test: CSR, cfg: SlimConfig, arrayl1, arrayl2,
                  parallel: bool = False, mesh=None, device=None):
     """Python-package-style cross product (pyapi.c:286-399): the inner
-    loop walks l2 for each l1, warm-starting from the previous model."""
-    if parallel:
-        raise NotImplementedError("mselect_grid(parallel=True) needs the "
-                                  "packed grid solve, not ported yet "
-                                  "(ROADMAP Queue 1: grid CD)")
+    loop walks l2 for each l1, warm-starting from the previous model.
+
+    ``parallel=True`` solves the whole grid with CD in one packed pass
+    (each block's columns carry their point's regularisation; no warm
+    starts) and evaluates each point as the walk does.  One solve serves
+    every point, so each record's ``time`` is the grid average
+    (``time_kind="grid_average"``) and the result has ``grid_time``."""
     points = [(l1, l2) for l1 in arrayl1 for l2 in arrayl2]
-    return mselect_core(train, test, cfg, points, mesh=mesh, device=device)
+    if not parallel:
+        return mselect_core(train, test, cfg, points, mesh=mesh,
+                            device=device)
+    if mesh is not None:
+        raise NotImplementedError("mesh-distributed mselect is not ported "
+                                  "yet (ROADMAP Queue 1: parallel/)")
+    if cfg.algo != "cd":
+        raise ValueError("mselect_grid(parallel=True) solves with CD; "
+                         f"algo {cfg.algo!r} walks with parallel=False")
+    dev = resolve_device(device)
+    train, test, fmarker = _aligned(train, test)
+    t0 = time.perf_counter()
+    solved = estimate_grid_cd(train, cfg, points, device=dev)
+    t_solve = time.perf_counter() - t0
+
+    results = []
+    best = _best()
+    for (l1, l2), (model, stats) in zip(points, solved):
+        ev, t_pred, t_metric = _evaluate(model, train, test, fmarker,
+                                         cfg.nrcmds, None, dev)
+        results.append(_record(l1, l2, model, ev, stats,
+                               time=t_solve / max(len(points), 1),
+                               time_kind="grid_average",
+                               time_predict=t_pred, time_metric=t_metric))
+        _track(best, l1, l2, ev, model)
+    best["results"] = results
+    best["grid_time"] = t_solve
+    return best

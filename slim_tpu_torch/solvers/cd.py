@@ -17,14 +17,23 @@ from runs: the previous model's columns, or the retained pack of the
 previous learn over the same matrix (model selection).  With
 ``keep_device_model`` the harvest packs stay on the device as a
 :class:`slim_tpu_torch.predict.DeviceModelPack`.
+
+With ``cfg.checkpoint_dir`` each solved block is written to a file keyed
+by a signature of everything that shapes it (:class:`_Checkpoint`), and a
+later learn loads the blocks it finds instead of solving them.
+:func:`estimate_grid_cd` solves a whole (l1r, l2r) grid in one packed
+pass, each block's columns carrying their own regularisation.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
 import time
+import zipfile
 from collections import Counter
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,7 +48,7 @@ from ..ops.densify import densify_runs
 from ..ops.gram import compute_gram, pin_f32
 from ..ops.pack import pack
 from ..types import CSR
-from ..utils import nnz_bucket, resolve_device
+from ..utils import PhaseTimer, nnz_bucket, resolve_device
 
 logger = logging.getLogger("slim_tpu_torch")
 
@@ -141,9 +150,121 @@ class _PackAccum:
                                rl, p_pad, posmap_pad, n, npad)
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+class _Block(NamedTuple):
+    """One solved block in item space: its model entries (rated item,
+    target item, value) and its column stats summed (err, obj, niters),
+    with ``sweeps`` = the sweeps its solve took (its slowest column's)."""
+    coord: np.ndarray
+    target: np.ndarray
+    vals: np.ndarray
+    err: float
+    obj: float
+    niters: int
+    sweeps: int
+
+
+class _Checkpoint:
+    """Per-block solve checkpoints (resume = load the solved blocks).
+
+    One ``cdblk_<sig>_<blk>.npz`` per block, written through a temporary
+    file and ``os.replace``.  The signature hashes everything that shapes a
+    block's result, as the JAX package's does (the full train arrays, the
+    regularisation and stopping settings, seed, block_size, shuffle,
+    simtype, the warm-start model), plus a discriminator of this package
+    (a JAX run's files in the same directory are never taken), the
+    effective block width ``B`` after the compact clamp, which numbers the
+    blocks, and ``compact_threshold`` and SLIM_COMPACT_FRAC, which pick
+    each block's coordinate space."""
+
+    def __init__(self, cfg: SlimConfig, train: CSR, n: int, B: int,
+                 imodel: CSR | None = None):
+        h = hashlib.sha256(b"slim_tpu_torch")
+        h.update(np.asarray([train.nrows, n, train.nnz]).tobytes())
+        h.update(np.ascontiguousarray(train.indptr).tobytes())
+        h.update(np.ascontiguousarray(train.indices).tobytes())
+        if train.data is not None:
+            h.update(np.ascontiguousarray(train.data).tobytes())
+        h.update(np.asarray([cfg.l1r, cfg.l2r, cfg.optTol,
+                             compact_frac()]).tobytes())
+        h.update(np.asarray([cfg.maxniters, cfg.nnbrs, cfg.ordered,
+                             cfg.seed, cfg.block_size, int(cfg.shuffle), B,
+                             cfg.compact_threshold]).tobytes())
+        h.update(cfg.simtype.encode())
+        if imodel is None:
+            h.update(b"none")
+        else:
+            h.update(np.asarray([imodel.nrows, imodel.ncols,
+                                 imodel.nnz]).tobytes())
+            h.update(np.ascontiguousarray(imodel.indptr).tobytes())
+            h.update(np.ascontiguousarray(imodel.indices).tobytes())
+            if imodel.data is not None:
+                h.update(np.ascontiguousarray(imodel.data).tobytes())
+        self.sig = h.hexdigest()[:16]
+        self.dir = cfg.checkpoint_dir
+        os.makedirs(self.dir, exist_ok=True)
+
+    def path(self, blk: int) -> str:
+        return os.path.join(self.dir, f"cdblk_{self.sig}_{blk}.npz")
+
+    def load(self, blk: int):
+        """The block's :class:`_Block`, or None when its file is missing or
+        unreadable."""
+        try:
+            with np.load(self.path(blk)) as z:
+                return _Block(z["coord"], z["target"], z["vals"],
+                              float(z["err"]), float(z["obj"]),
+                              int(z["niters"]), int(z["sweeps"]))
+        except (OSError, EOFError, KeyError, ValueError,
+                zipfile.BadZipFile):
+            return None
+
+    def save(self, blk: int, rec: _Block) -> None:
+        tmp = self.path(blk) + ".tmp.npz"
+        np.savez(tmp, **rec._asdict())
+        os.replace(tmp, self.path(blk))
+
+
+def _rank_space(train: CSR, cfg: SlimConfig, npad: int, gram, dev):
+    """The frequency relabel (rank r = the r-th most-rated item): the Gram
+    in rank space on ``dev`` (``gram``, in item space, or computed), p
+    (rank -> item), ``p_pad`` / ``posmap_pad`` over npad, and each rank's
+    sweep cap min(50 nnz_col, maxniters) (estimate.c:448-449)."""
+    n = train.ncols
+    g_raw = gram if gram is not None else \
+        compute_gram(train, cfg.gram, pad_to=npad, device=dev)
+    nnz_col = train.col_nnz()
+    col_caps = np.minimum(50 * nnz_col, cfg.maxniters).astype(np.int32)
+    p = np.argsort(-nnz_col, kind="stable").astype(np.int32)  # rank -> item
+    pad = np.arange(n, npad, dtype=np.int64)
+    p_pad = np.concatenate([p, pad])
+    posmap_pad = np.concatenate([np.empty(n, np.int64), pad])
+    posmap_pad[p] = np.arange(n)                              # item -> rank
+    p_dev = torch.from_numpy(p_pad).to(dev)
+    g = g_raw.index_select(0, p_dev).index_select(1, p_dev)
+    return g, p, p_pad, posmap_pad, col_caps[p], nnz_col
+
+
+def _pack_block(x, nJ: int):
+    """Harvest of one solved (B, K) block: per-column counts of entries
+    over EPSILON (host; padded columns 0), then offsets -> the pack kernel.
+    Returns (counts, values, coordinate ids), the last two on the device
+    in column order."""
+    x = x.contiguous()
+    c = count_over(x, EPSILON).cpu().numpy().astype(np.int64)
+    c[nJ:] = 0
+    off = np.zeros(x.shape[0], np.int32)
+    np.cumsum(c[:-1], out=off[1:])
+    T = int(c.sum())
+    fv, fi = pack(x, torch.from_numpy(off).to(x.device), EPSILON,
+                  nnz_bucket(max(T, 1), floor=128))
+    return c, fv[:T], fi[:T]
+
+
+def _col_stats(out, nJ: int):
+    """(niters, rstatus, rnorm, obj) of a block solve's first nJ columns,
+    float64 on the host."""
+    return torch.stack([o[:nJ].to(torch.float64) for o in out[1:]]) \
+        .cpu().numpy()
 
 
 def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
@@ -166,18 +287,14 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     replaces its upload.  ``gram``: a precomputed (npad, npad) Gram in
     original item space on ``device`` (model selection shares one).
     ``keep_device_model``: ``stats["W_dev"]`` is the model as a
-    :class:`slim_tpu_torch.predict.DeviceModelPack`."""
+    :class:`slim_tpu_torch.predict.DeviceModelPack`; with
+    ``cfg.checkpoint_dir`` set it is None, as in the JAX package
+    (restored blocks have no device pack).  ``cfg.checkpoint_dir``:
+    blocks found there (:class:`_Checkpoint`) are loaded, the others
+    solved and written."""
     dev = resolve_device(device)
     pin_f32()
-    t_start = time.perf_counter()
-    phases = Counter()
-
-    def lap(name, t0):
-        _sync(dev)
-        t1 = time.perf_counter()
-        phases[name] += t1 - t0
-        return t1
-
+    clock = PhaseTimer(dev)
     n = train.ncols
     npad = bucket_npad(n)
     B = int(cfg.block_size)
@@ -188,22 +305,9 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         return model, {"loss": 0.0, "fit": 0.0, "ffrac": 0.0, "nnz": 0,
                        "niters": 0, "sweeps": 0, "phases": {}}
 
-    t = time.perf_counter()
-    g_raw = gram if gram is not None else \
-        compute_gram(train, cfg.gram, pad_to=npad, device=dev)
-    t = lap("gram", t)
-
-    nnz_col = train.col_nnz()
-    col_caps = np.minimum(50 * nnz_col, cfg.maxniters).astype(np.int32)
-    p = np.argsort(-nnz_col, kind="stable").astype(np.int32)  # rank -> item
-    pad = np.arange(n, npad, dtype=np.int64)
-    p_pad = np.concatenate([p, pad])
-    posmap_pad = np.concatenate([np.empty(n, np.int64), pad])
-    posmap_pad[p] = np.arange(n)                              # item -> rank
-    p_dev = torch.from_numpy(p_pad).to(dev)
-    g = g_raw.index_select(0, p_dev).index_select(1, p_dev)
-    del g_raw
-    caps_p = col_caps[p]
+    g, p, p_pad, posmap_pad, caps_p, nnz_col = _rank_space(train, cfg, npad,
+                                                           gram, dev)
+    clock.lap("gram")
     # FSLIM ignores the warm start (cd.py:613 of the JAX package: the
     # reference's active-flag handshake only engages for the screen)
     use_warm = imodel is not None and cfg.mtype in ("slim", "oslim")
@@ -211,12 +315,14 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     fslim = dict(fslim_nnbrs=fslim_nnbrs, simtype=cfg.simtype)
     runs = warm_runs(imodel, warm_pack, p_pad, posmap_pad, n, dev) \
         if use_warm else None
-    acc = _PackAccum() if keep_device_model else None
 
     use_compact = npad > int(cfg.compact_threshold)
     if use_compact:
         B = min(B, COMPACT_BMAX)
     nblocks = (n + B - 1) // B
+    ckpt = _Checkpoint(cfg, train, n, B, imodel if use_warm else None) \
+        if cfg.checkpoint_dir else None
+    acc = _PackAccum() if keep_device_model and ckpt is None else None
 
     def block_ids(blk):
         """(first rank, real columns, (B,) target ranks on the device, the
@@ -250,12 +356,9 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         if dbg(cfg, SLIM_DBG_TIME):
             logger.info("union widths: %s", " ".join(
                 f"{k}:{v}" for k, v in sorted(widths.items())))
-    t = lap("relabel+screen", t)
+    clock.lap("relabel+screen")
 
-    coords, targets, vals = [], [], []
-    total_err = total_obj = 0.0
-    total_niters = sweeps = 0
-    for blk in range(nblocks):
+    def solve_block(blk):
         r0, nJ, J = block_ids(blk)
         caps = np.zeros(B, dtype=np.int32)
         caps[:nJ] = caps_p[r0:r0 + nJ]
@@ -267,7 +370,7 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
             x0 = warm_x0(runs, r0, nJ, B, n, npad)
             if S is not None:
                 x0 = x0.index_select(1, S.long())
-            t = lap("warm x0", t)
+            clock.lap("warm x0")
         else:
             x0 = torch.zeros((B, K), dtype=torch.float32, device=dev)
         kw = dict(shuffle=cfg.shuffle, x0_zero=not use_warm,
@@ -279,35 +382,18 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         else:
             out = cd_solve_block_ids(g, J, caps_d, x0, *args, **kw,
                                      n_valid=n, **fslim)
-        t = lap("solve", t)
+        clock.lap("solve")
 
         # harvest: counts -> offsets -> pack kernel -> host
-        x = out[0].contiguous()
-        c = count_over(x, EPSILON).cpu().numpy().astype(np.int64)
-        c[nJ:] = 0
-        off = np.zeros(B, np.int32)
-        np.cumsum(c[:-1], out=off[1:])
-        T = int(c.sum())
-        fv, fi = pack(x, torch.from_numpy(off).to(dev), EPSILON,
-                      nnz_bucket(max(T, 1), floor=128))
+        c, fv, fi = _pack_block(out[0], nJ)
         if acc is not None:
-            acc.add(c, fv[:T], fi[:T], S)
-        va = fv[:T].cpu().numpy()
-        ia = fi[:T].cpu().numpy().astype(np.int64)
-        st = torch.stack([o[:nJ].to(torch.float64) for o in out[1:]]) \
-            .cpu().numpy()
-
+            acc.add(c, fv, fi, S)
+        va = fv.cpu().numpy()
+        ia = fi.cpu().numpy().astype(np.int64)
+        niters_h, rstatus_h, rnorm_h, obj_h = _col_stats(out, nJ)
         rows = np.repeat(np.arange(B, dtype=np.int64), c)
         cp = S_h[ia].astype(np.int64) if S_h is not None else ia
         keep = cp < n
-        coords.append(p[cp[keep]])
-        targets.append(p[r0 + rows[keep]])
-        vals.append(va[keep])
-        niters_h, rstatus_h, rnorm_h, obj_h = st
-        total_err += float(rnorm_h.sum())
-        total_obj += float(obj_h.sum())
-        total_niters += int(niters_h.sum())
-        sweeps += int(niters_h.max()) if nJ else 0
         if dbg(cfg, SLIM_DBG_PROGRESS):
             for b in range(nJ):
                 j = p[r0 + b]
@@ -315,20 +401,38 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                             "rsd: %.2e obj: %.2e", j, int(nnz_col[j]),
                             int(rstatus_h[b]), int(niters_h[b]), int(c[b]),
                             rnorm_h[b], obj_h[b])
-        t = lap("harvest", t)
+        clock.lap("harvest")
+        return _Block(p[cp[keep]], p[r0 + rows[keep]], va[keep],
+                      float(rnorm_h.sum()), float(obj_h.sum()),
+                      int(niters_h.sum()), int(niters_h.max()) if nJ else 0)
 
-    model = CSR.from_ijv(np.concatenate(coords), np.concatenate(targets),
-                         np.concatenate(vals), nrows=n, ncols=n,
-                         no_duplicates=True)
-    lap("assembly", t)
+    blocks = []
+    for blk in range(nblocks):
+        rec = ckpt.load(blk) if ckpt is not None else None
+        if rec is not None:
+            clock.lap("restore")
+        else:
+            rec = solve_block(blk)
+            if ckpt is not None:
+                ckpt.save(blk, rec)
+                clock.lap("checkpoint")
+        blocks.append(rec)
+
+    model = CSR.from_ijv(np.concatenate([b.coord for b in blocks]),
+                         np.concatenate([b.target for b in blocks]),
+                         np.concatenate([b.vals for b in blocks]),
+                         nrows=n, ncols=n, no_duplicates=True)
+    clock.lap("assembly")
+    total_err = sum(b.err for b in blocks)
+    total_obj = sum(b.obj for b in blocks)
     stats = {
         "loss": total_obj,
         "fit": total_err,
         "ffrac": total_err / total_obj if total_obj else 0.0,
         "nnz": model.nnz,
-        "niters": total_niters,
-        "sweeps": sweeps,
-        "phases": dict(phases),
+        "niters": sum(b.niters for b in blocks),
+        "sweeps": sum(b.sweeps for b in blocks),
+        "phases": dict(clock.phases),
     }
     if use_compact:
         # coordinate width -> blocks, and each compact block's union (rank
@@ -336,14 +440,97 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         stats["union_widths"] = dict(sorted(widths.items()))
         stats["unions"] = {b: S_h[S_h < npad - 1]
                            for b, (_, _, S_h) in union.items()}
-    if acc is not None:
-        stats["W_dev"] = acc.finalize(p_pad, posmap_pad, n, npad)
+    if keep_device_model:
+        stats["W_dev"] = None if acc is None else \
+            acc.finalize(p_pad, posmap_pad, n, npad)
     if dbg(cfg, SLIM_DBG_TIME):
         logger.info("cd phases: %s (total %.2fs)", "  ".join(
-            f"{k} {v:.2f}s" for k, v in phases.items()),
-            time.perf_counter() - t_start)
+            f"{k} {v:.2f}s" for k, v in clock.phases.items()),
+            time.perf_counter() - clock.start)
     if dbg(cfg, SLIM_DBG_INFO):
         logger.info(
             "Done estimation: loss: %.5e, fit: %.5e, ffrac: %.3f,  #nzs: %d",
             stats["loss"], stats["fit"], stats["ffrac"], stats["nnz"])
     return model, stats
+
+
+def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None):
+    """Solve a whole (l1r, l2r) grid in one packed pass on ``device``
+    (default: the card; raises without one).
+
+    Every (grid point, item column) pair is one virtual column v: point
+    v // n, rank v % n.  Blocks of ``cfg.block_size`` virtual columns solve
+    at full width against the shared rank-space Gram, each column with its
+    point's (l1r, l2r), cold (no warm start), block v0's visit order seeded
+    with seed + v0 as in the JAX package; FSLIM restricts each column to
+    its neighbours.  Each block is harvested through the pack kernel and
+    its entries split by point.  Returns a list of (model, stats) aligned
+    with ``points``; a point's loss, fit, nnz and niters are its columns'
+    sums, its ``sweeps`` the sweeps of the blocks that hold its columns."""
+    dev = resolve_device(device)
+    pin_f32()
+    train = train.infer_ncols()
+    n = train.ncols
+    npad = bucket_npad(n)
+    B = int(cfg.block_size)
+    P = len(points)
+    l1s = np.asarray([pt[0] for pt in points], dtype=np.float32)
+    l2s = np.asarray([pt[1] for pt in points], dtype=np.float32)
+    tri = [([], [], []) for _ in range(P)]   # (coord, target, val) lists
+    st = np.zeros((P, 4), np.float64)        # (err, obj, niters, sweeps)
+    if train.nnz:
+        g, p, _, _, caps_p, _ = _rank_space(train, cfg, npad, None, dev)
+        fslim_nnbrs = int(cfg.nnbrs) if cfg.mtype in ("fslim", "ofslim") \
+            else 0
+        kw = dict(shuffle=cfg.shuffle, x0_zero=True,
+                  impl=pick_impl(npad, dev, cfg.compact_threshold),
+                  variant=pick_large_variant(B, npad), n_valid=n,
+                  fslim_nnbrs=fslim_nnbrs, simtype=cfg.simtype)
+        x0 = torch.zeros((B, npad), dtype=torch.float32, device=dev)
+        for v0 in range(0, P * n, B):
+            nv = min(B, P * n - v0)
+            vids = np.arange(v0, v0 + nv)
+            ranks, pts = vids % n, vids // n
+            Jpad = np.full(B, npad - 1, dtype=np.int32)
+            Jpad[:nv] = ranks
+            caps = np.zeros(B, dtype=np.int32)
+            caps[:nv] = caps_p[ranks]
+            l1b = np.zeros(B, dtype=np.float32)
+            l2b = np.ones(B, dtype=np.float32)
+            l1b[:nv], l2b[:nv] = l1s[pts], l2s[pts]
+            out = cd_solve_block_ids(
+                g, *(torch.from_numpy(a).to(dev) for a in (Jpad, caps)), x0,
+                *(torch.from_numpy(a).to(dev) for a in (l1b, l2b)),
+                float(cfg.optTol), torch.Generator().manual_seed(
+                    int(cfg.seed) + v0), **kw)
+            c, fv, fi = _pack_block(out[0], nv)
+            va = fv.cpu().numpy()
+            ia = fi.cpu().numpy().astype(np.int64)
+            rows = np.repeat(np.arange(B, dtype=np.int64), c)
+            keep = ia < n
+            rows, ia, va = rows[keep], ia[keep], va[keep]
+            niters_h, _, rnorm_h, obj_h = _col_stats(out, nv)
+            sweeps = int(niters_h.max())
+            for pt in np.unique(pts):
+                mine = pts == pt
+                sel = mine[rows]
+                tri[pt][0].append(p[ia[sel]])
+                tri[pt][1].append(p[ranks[rows[sel]]])
+                tri[pt][2].append(va[sel])
+                st[pt] += (rnorm_h[mine].sum(), obj_h[mine].sum(),
+                           niters_h[mine].sum(), sweeps)
+
+    results = []
+    for pt in range(P):
+        coord, target, vals = (np.concatenate(a) if a else
+                               np.zeros(0, dt) for a, dt in
+                               zip(tri[pt], (np.int32, np.int32,
+                                             np.float32)))
+        model = CSR.from_ijv(coord, target, vals, nrows=n, ncols=n,
+                             no_duplicates=True)
+        err, obj, niters, sweeps = st[pt]
+        results.append((model, {
+            "loss": float(obj), "fit": float(err),
+            "ffrac": float(err / obj) if obj else 0.0, "nnz": model.nnz,
+            "niters": int(niters), "sweeps": int(sweeps)}))
+    return results

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import time
+from collections import Counter
+
 import torch
 
 
@@ -49,3 +52,21 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError('no CUDA card: pass device="cpu" (-device=cpu '
                            'on the command line) to run on the CPU')
     return torch.device("cuda")
+
+
+class PhaseTimer:
+    """Seconds per named phase of a solve on ``dev``: each :meth:`lap`
+    waits for the device, then charges the time since the previous lap
+    (or the timer's start) to its phase."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.start = self.t = time.perf_counter()
+        self.phases = Counter()
+
+    def lap(self, name: str) -> None:
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        t = time.perf_counter()
+        self.phases[name] += t - self.t
+        self.t = t

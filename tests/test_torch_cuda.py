@@ -376,3 +376,115 @@ def test_fslim_learn_on_card_matches_cpu(dev, rng):
     np.testing.assert_allclose(sg["loss"], sc["loss"], rtol=1e-4)
     assert abs(sg["nnz"] - sc["nnz"]) <= 0.01 * sc["nnz"]
     assert (mg.to_dense() > 0).sum(axis=0).max() <= 8
+
+
+def _mixed_regs(B, dev, layout_rows=True):
+    """Per-column [l1r, l2r, cap, t0, optTol]: the first half of the
+    columns at (2, 2) with cap 40, the rest at (1, 1) with cap 60, as a
+    packed grid block that straddles two points."""
+    half = torch.arange(B, device=dev) < B // 2
+    regs = torch.stack([torch.where(half, 2.0, 1.0),
+                        torch.where(half, 2.0, 1.0),
+                        torch.where(half, 40.0, 60.0),
+                        torch.full((B,), 3.0, device=dev),
+                        torch.full((B,), 1e-7, device=dev)], dim=1)
+    return (regs if layout_rows else regs.T).contiguous()
+
+
+@pytest.mark.parametrize("npad,B", [(4096, 512), (512, 300)])
+def test_row_sweep_with_mixed_regs(dev, rng, npad, B):
+    """The whole-array sweep with two (l1r, l2r, cap) groups of columns in
+    one block against its plain version: x atol 1e-4, q rel 1e-4, live and
+    nit equal; the two halves' x differ (each reads its own regs)."""
+    Gm, gj, diag, act, caps, yty = _solve_inputs(dev, rng, npad - 90, npad,
+                                                 B)
+    x = torch.where(act, torch.rand(act.shape, device=dev) * 0.05, 0.0)
+    live = torch.ones(B, 1, device=dev)
+    nch = npad // 128
+    args = (Gm, gj, act.to(torch.int8), x, x @ Gm, live,
+            diag.reshape(1, npad).contiguous(), _mixed_regs(B, dev),
+            torch.randperm(nch, device=dev).to(torch.int32),
+            torch.ones(nch, dtype=torch.int32, device=dev))
+    ref = S.cd_sweep_plain(*args)
+    got = S.cd_sweep(*args)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    qscale = max(1.0, ref[1].abs().max().item())
+    assert (got[1] - ref[1]).abs().max().item() <= 1e-4 * qscale
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    flat = _mixed_regs(B, dev)
+    flat[:, :2] = 1.0
+    other = S.cd_sweep_plain(*args[:7], flat, *args[8:])
+    assert not torch.equal(other[0][:B // 2], ref[0][:B // 2])
+    torch.testing.assert_close(other[0][B // 2:], ref[0][B // 2:], rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("npad,B,has", [(28672, 1024, None),
+                                        (4096, 70, [1, 0, 1, 1, 1, 0, 1, 1])])
+def test_large_sweep_with_mixed_regs(dev, rng, npad, B, has):
+    """The coordinate-major sweep with two (l1r, l2r, cap) groups of
+    columns against its plain version (the ML-20M grid's block, all groups
+    active; and a small one with inactive groups): x atol 1e-4, q rel 1e-4,
+    live and nit equal."""
+    Gm, gj, diag, act, caps, yty = _solve_inputs(dev, rng, 600, npad, B)
+    ng = npad // S.GROUP
+    x = torch.where(act, torch.rand(act.shape, device=dev) * 0.05, 0.0)
+    xT = x.T.contiguous()
+    has = torch.ones(ng, dtype=torch.int32, device=dev) if has is None \
+        else torch.tensor(has, dtype=torch.int32, device=dev)
+    args = (Gm, gj.T.contiguous(), act.T.to(torch.int8).contiguous(), xT,
+            Gm @ xT, torch.ones(1, B, device=dev),
+            diag.reshape(1, npad).contiguous(),
+            _mixed_regs(B, dev, layout_rows=False),
+            torch.randperm(ng, device=dev).to(torch.int32), has)
+    got, ref = S.cd_sweep_large(*args), S.cd_sweep_large_plain(*args)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    qscale = max(1.0, ref[1].abs().max().item())
+    assert (got[1] - ref[1]).abs().max().item() <= 1e-4 * qscale
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+
+
+def test_admm_on_card_matches_f64(dev):
+    """ADMM's float32 solve on the card against its float64 version on the
+    card (tests/test_admm.py's bar: W atol 2e-2, fit within 1e-3 rel);
+    zero diagonal, W >= 0."""
+    from slim_tpu_torch.solvers import admm as A
+
+    mat = random_csr(np.random.default_rng(11), 3000, 400, density=0.05,
+                     implicit=True)
+    m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices, None)
+    T = G.compute_gram(m, "device", pad_to=512, device=dev)
+    W, err, obj = A.admm_solve(T, 2.0, 2.0)
+    W64 = A.admm_solve_f64(T, 2.0, 2.0)
+    torch.testing.assert_close(W.double(), W64, rtol=0, atol=2e-2)
+    e64, _ = A.admm_stats(T.double(), W64, 2.0, 2.0)
+    assert abs(err - e64) <= 1e-3 * e64 and obj >= err > 0
+    assert torch.diagonal(W).abs().max().item() < 1e-3
+    assert W.min().item() >= 0
+
+
+def test_checkpoint_resume_on_card(dev, tmp_path):
+    """A checkpointed learn on the card resumed after a lost block equals
+    the uninterrupted learn: the lost block's sweeps are launched again,
+    no other block's, and the model is the same to 1e-6."""
+    import glob
+    import os
+
+    from slim_tpu_torch import SlimConfig, learn
+
+    mat = random_csr(np.random.default_rng(12), 600, 500, density=0.05,
+                     implicit=True)
+    m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices, None)
+    cfg = SlimConfig(l1r=0.5, l2r=0.5, block_size=128,
+                     checkpoint_dir=str(tmp_path))
+    m1, s1 = learn(m, cfg, device=dev)
+    files = sorted(glob.glob(str(tmp_path / "cdblk_*")))
+    assert len(files) == 4
+    lost = np.load(files[2])
+    os.remove(files[2])
+    launches = S.cd_sweep.launches
+    m2, s2 = learn(m, cfg, device=dev)
+    assert S.cd_sweep.launches - launches == int(lost["sweeps"])
+    np.testing.assert_allclose(m2.to_dense(), m1.to_dense(), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(s2["loss"], s1["loss"], rtol=1e-6)

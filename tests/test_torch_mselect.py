@@ -90,8 +90,14 @@ def test_mselect_grid_walks_l2_inner_and_rejects_unported_modes():
         [(1.0, 0.5), (1.0, 2.0), (4.0, 0.5), (4.0, 2.0)]
     # heavier l1 => sparser model
     assert res["results"][2]["nnz"] < res["results"][0]["nnz"]
-    with pytest.raises(NotImplementedError, match="grid CD"):
-        mselect_grid(trn, tst, SlimConfig(), [1.0], [1.0], parallel=True)
+    # the packed grid walks the same points; it solves with CD only
+    par = mselect_grid(trn, tst, SlimConfig(), [1.0, 4.0], [0.5, 2.0],
+                       parallel=True, device="cpu")
+    assert [(r["l1r"], r["l2r"]) for r in par["results"]] == \
+        [(r["l1r"], r["l2r"]) for r in res["results"]]
+    with pytest.raises(ValueError, match="CD"):
+        mselect_grid(trn, tst, SlimConfig(algo="admm"), [1.0], [1.0],
+                     parallel=True, device="cpu")
     with pytest.raises(NotImplementedError, match="parallel/"):
         mselect_pairs(trn, tst, SlimConfig(), PAIRS, mesh=object())
 

@@ -366,9 +366,12 @@ def test_negfile_cli_matches_jax(tmp_path, capsys):
 
 def test_ranked_mismatches_rule():
     """The shared near-tie rule: a swap of two neighbours whose reference
-    scores differ by under rtol, and a last-slot id whose two scores differ
-    by under rtol, are forgiven; an exact tie in another order, or a
-    last-slot id with the very same score, is not."""
+    scores differ by under rtol, a last-slot id whose two scores differ by
+    under rtol, and a last-slot id lower than the reference's at the very
+    same score (the reference breaks exact ties by the lowest id, so its
+    higher id won a near tie), are forgiven; an exact tie in another
+    order, or a last-slot id higher than the reference's at the very same
+    score, is not."""
     ref_ids = np.array([[4, 30, 22, 21], [4, 5, 6, 28]])
     ref_sc = np.array([[9.0, 5.3554816, 5.3554811, 4.0],
                        [9.0, 8.0, 7.0, 4.8030233]], np.float32)
@@ -377,6 +380,7 @@ def test_ranked_mismatches_rule():
     sc[1, 3] = np.float32(4.8030238)
     assert ranked_mismatches(ids, sc, ref_ids, ref_sc) == (3, 0)
     assert ranked_mismatches(ids, ref_sc, ref_ids, ref_sc) == (3, 1)
+    assert ranked_mismatches(ref_ids, ref_sc, ids, ref_sc) == (3, 0)
     tie = np.array([[9.0, 5.0, 5.0, 4.0]], np.float32)
     assert ranked_mismatches(np.array([[4, 22, 30, 21]]), tie,
                              np.array([[4, 30, 22, 21]]), tie) == (2, 2)
