@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # everything, as a release check runs it
     python3 chip_smoke.py --only kernels   # build + kernel-vs-plain checks
+    python3 chip_smoke.py --only dist      # phase 4's learn + phase 13
     python3 chip_smoke.py --profile chiprun_out   # one sweep and phase 4
                                                   # under torch.profiler
 
@@ -96,10 +97,27 @@ Phases (any failure exits non-zero, and no result line is printed):
      rating) triplets: train -> predict -> save_model / load_model ->
      predict, against api.learn + get_topn; a learn with profile_dir
      writes a trace that names the sweep kernel.
-  13. the kernels line.  Phases 3-12 (3b, 3c and 10b too) are each driven
-     with every launch counter set to 0 just before and read just after;
-     each path must launch its own kernels (PATH_KERNELS) and no other
-     (phase 8: no kernel at all).  A kernel's
+  13. the distributed learns (slim_tpu_torch.parallel), in spawned worlds
+     of one process per rank (parallel.launch.run_world), each rank
+     counting its own launches.  A NCCL world of torch.cuda.device_count()
+     ranks: dist_ml1m, the replicated, blockwise and sharded-G learns and
+     mselect_grid(parallel=True, mesh=) at the ML-1M shape; dist_ml20m, the
+     replicated and sharded-G learns and the sharded predict (every user)
+     at ML-20M, each learn within DIST_OBJ_RTOL of phase 4's objective and
+     DIST_NNZ_RTOL of its nnz and within the ML-20M gates, the first 4,096
+     users' ids against the single-device predict of the same model;
+     dist_2m, the blockwise learn at scripts/amazon2m_dryrun.py's 2M-item
+     shape (datagen.synth_longtail: 50,000 x 2,000,000, 400k draws,
+     block_size 64, l1r = l2r = 0.5, shuffle off) against the JAX
+     package's objective there.  Then dist_gloo2, dist_ml1m again in a
+     2-rank gloo world on cuda:0 (collectives staged through the host),
+     against the NCCL world's results.  Every rank of a world returns the
+     same model.  Each learn prints its seconds, cols/s, objective and nnz.
+  14. the kernels line.  Phases 3-13 (3b, 3c and 10b too) are each driven
+     with every launch counter set to 0 just before and read just after
+     (in the ranks, summed over them, for phase 13's paths); each path
+     must launch its own kernels (PATH_KERNELS) and no other (phase 8: no
+     kernel at all).  A kernel's
      ``launches`` is the sum of its per-path counts (``launches_by_path``)
      in the unit of ``launch_unit``; errors and times come from phase 2, at
      the shape the path runs (``ms``/``plain_ms``) and at the other shapes
@@ -176,6 +194,17 @@ ML1M_FSLIM_OBJ, ML1M_FSLIM_NNZ = 414806.0915, 103225
 # 100,000 users, 50 model entries per row on zipf(1.3) columns, 40-entry
 # zipf(1.2) histories, seed 7 (npad 266,240: a dense W would be 283 GB)
 SERVE_SHAPE = dict(n=262_144, nusers=100_000, nnz_row=50, hlen=40, seed=7)
+# the distributed learns (phase 13): each within DIST_OBJ_RTOL of the
+# single-device objective of the same matrix in this run (phase 4 at
+# ML-20M, the NCCL world's at the ML-1M shape) and within DIST_NNZ_RTOL of
+# its model nnz; the sharded predict against the single-device predict on
+# the first DIST_HEAD users
+DIST_OBJ_RTOL, DIST_NNZ_RTOL, DIST_HEAD = 1e-6, 1e-4, 4096
+# the 2M-item blockwise learn of scripts/amazon2m_dryrun.py: its config
+# and the JAX package's objective there (docs/RESULTS.md:592; the native
+# oracle gives 147,401.170)
+DIST_2M_CFG = dict(l1r=0.5, l2r=0.5, block_size=64, shuffle=False)
+AMAZON2M_OBJ = 147401.176
 # the kernels each driven path must launch, and no other: the synth set
 # (npad 384) and
 # the ML-1M shape (npad 4096) solve on the whole-array row-major sweep, and
@@ -200,7 +229,16 @@ PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
                 "grid": ("densify", "cd_sweep", "pack"),
                 "grid_ml20m": ("densify", "cd_sweep_large", "pack"),
                 "checkpoint": ("densify", "cd_sweep_large", "pack"),
-                "api": ("densify", "cd_sweep", "pack")}
+                "api": ("densify", "cd_sweep", "pack"),
+                # the distributed paths: the ML-1M shape's blocks and
+                # superblock unions (at most 4,096 wide) on the whole-array
+                # sweep, ML-20M's (unions 24,576-28,672 wide) on v4, the
+                # 2M-item unions (about 2,000 hot items) on the whole-array
+                # sweep; Grams, screens and the dense predict on densify
+                "dist_ml1m": ("densify", "cd_sweep", "pack"),
+                "dist_ml20m": ("densify", "cd_sweep_large", "pack"),
+                "dist_2m": ("densify", "cd_sweep", "pack"),
+                "dist_gloo2": ("densify", "cd_sweep", "pack")}
 WIDE_SWEEPS = ("cd_sweep_large", "cd_sweep_v3", "cd_sweep_eager")
 _SWEEP_UNIT = ("sweeps: one wrapper call enqueues, per 128-wide chunk of "
                "the visit order, a group kernel (GS chain) and a "
@@ -651,9 +689,11 @@ def run_synth(dev):
 
 
 def _head_rows(mat, n):
-    """The first ``n`` rows of a CSR, same columns."""
+    """The first ``n`` rows of a CSR (all, when it has fewer), same
+    columns."""
     from slim_tpu_torch.types import CSR
 
+    n = min(n, mat.nrows)
     end = int(mat.indptr[n])
     return CSR.from_arrays(n, mat.ncols, mat.indptr[:n + 1].copy(),
                            mat.indices[:end],
@@ -734,13 +774,9 @@ def run_ml1m(dev):
 def launch_wrappers():
     """The kernel wrappers whose ``launches`` counters the driven paths
     are held to, by kernel name."""
-    from slim_tpu_torch.ops import cd_sweep as S
-    from slim_tpu_torch.ops.densify import densify
-    from slim_tpu_torch.ops.pack import pack
+    from slim_tpu_torch.ops import kernel_wrappers
 
-    return {"densify": densify, "cd_sweep": S.cd_sweep,
-            "cd_sweep_large": S.cd_sweep_large, "cd_sweep_v3": S.cd_sweep_v3,
-            "cd_sweep_eager": S.cd_sweep_eager, "pack": pack}
+    return kernel_wrappers()
 
 
 def _launch_counts():
@@ -1431,10 +1467,234 @@ def run_api(dev):
     return out
 
 
+# a rank's models between the calls of one world (phase 13), by name
+_KEPT = {}
+
+
+def _summary(model, stats, secs, ncols):
+    """The printed record of one distributed learn."""
+    return dict(learn_s=secs, cols_per_s=ncols / secs,
+                objective=stats["loss"], model_nnz=stats["nnz"],
+                sweeps=stats["sweeps"], niters=stats["niters"],
+                ranks=stats["ndevices"], superblocks=stats.get("superblocks"),
+                model_sum=float(model.values().sum(dtype=np.float64)))
+
+
+def dist_learn(mode, trn, cfg, keep=None, mesh=None):
+    """A world's call: one distributed learn (``mode``) on ``mesh``, timed
+    to its end on the card; the model kept under ``keep``."""
+    from slim_tpu_torch.parallel import dist as D
+
+    fn = {"replicated": D.distributed_learn,
+          "blockwise": D.distributed_learn_blockwise,
+          "sharded_g": D.distributed_learn_sharded_g}[mode]
+    (model, stats), secs = _timed(lambda: fn(trn, cfg, mesh))
+    if keep:
+        _KEPT[keep] = model
+    return _summary(model, stats, secs, trn.ncols)
+
+
+def dist_grid(trn, tst, cfg, mesh=None):
+    """A world's call: mselect_grid(parallel=True, mesh=) over GRID_L1 x
+    GRID_L2, without the models."""
+    from slim_tpu_torch.mselect import mselect_grid
+
+    res = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, parallel=True,
+                       mesh=mesh)
+    return dict(grid_s=res["grid_time"], best=(res["bestl1HR"],
+                                               res["bestl2HR"]),
+                per_point=[{k: r[k] for k in ("l1r", "l2r", "loss", "nnz",
+                                              "sweeps", "hr", "arhr")}
+                           for r in res["results"]])
+
+
+def dist_predict(hist, keep, mesh=None):
+    """A world's call: the sharded top-10 of every user of ``hist`` on the
+    kept model; the first DIST_HEAD users' lists."""
+    from slim_tpu_torch.parallel.dist import sharded_predict
+
+    got, secs = _timed(lambda: sharded_predict(_KEPT[keep], hist, mesh,
+                                               nrcmds=10))
+    return dict(users=hist.nrows, s=secs, users_per_s=hist.nrows / secs,
+                head=tuple(a[:DIST_HEAD] for a in got))
+
+
+def dist_predict_ref(hist, keep, mesh=None):
+    """A world's call, not part of a path: the single-device top-10 of
+    the first DIST_HEAD users on the kept model."""
+    from slim_tpu_torch.parallel.mesh import mesh_device
+    from slim_tpu_torch.predict import predict_topn
+
+    return predict_topn(_KEPT[keep], _head_rows(hist, DIST_HEAD), nrcmds=10,
+                        device=mesh_device(mesh))
+
+
+def _ml1m_calls():
+    """The ML-1M calls of dist_ml1m / dist_gloo2: the three learns and the
+    packed grid on a mesh."""
+    from slim_tpu_torch import SlimConfig
+    from slim_tpu_torch.datagen import synth_implicit
+    from slim_tpu_torch.parallel.launch import Call
+
+    trn = synth_implicit(*ML1M_SHAPE, seed=0)
+    tst = synth_implicit(trn.nrows, trn.ncols, trn.nrows, seed=1)
+    cfg = SlimConfig(l1r=1.0, l2r=1.0, **ML1M_CFG)
+    return [Call(m, dist_learn, (m, trn, cfg))
+            for m in ("replicated", "blockwise", "sharded_g")] + \
+        [Call("grid", dist_grid, (trn, tst, SlimConfig(**ML1M_CFG)))]
+
+
+def _fresh(mat):
+    """``mat`` without its device caches, to be pickled to the ranks."""
+    from slim_tpu_torch.types import CSR
+
+    return CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices,
+                           mat.data)
+
+
+def _same_on_ranks(tag, ranks, key):
+    """Every rank's record of ``key`` is the same but for its times."""
+    recs = [{k: v for k, v in r[key]["result"].items()
+             if k not in ("learn_s", "cols_per_s", "grid_s")} for r in ranks]
+    check(all(r == recs[0] for r in recs[1:]),
+          f"{tag} {key}: ranks differ: {recs}")
+
+
+def run_dist(trn, phase4):
+    """Phase 13: the NCCL world (dist_ml1m, dist_ml20m, dist_2m) and the
+    2-rank gloo world (dist_gloo2).  Returns {path: (record, launches
+    summed over the ranks)}."""
+    from slim_tpu_torch import SlimConfig
+    from slim_tpu_torch.datagen import synth_longtail
+    from slim_tpu_torch.parallel.launch import Call, run_calls, run_world
+
+    ml1m = _ml1m_calls()
+    big = _fresh(trn)
+    cfg20 = SlimConfig(l1r=1.0, l2r=1.0, **ML20M_CFG)
+    m2, gen_s = _timed(synth_longtail)
+    paths = {
+        "dist_ml1m": [c.key for c in ml1m],
+        "dist_ml20m": ["ml20m_replicated", "ml20m_sharded_g",
+                       "ml20m_predict"],
+        "dist_2m": ["blockwise_2m"]}
+    calls = ml1m + [
+        Call("ml20m_replicated", dist_learn, ("replicated", big, cfg20),
+             dict(keep="ml20m")),
+        Call("ml20m_sharded_g", dist_learn, ("sharded_g", big, cfg20)),
+        Call("ml20m_predict", dist_predict, (big, "ml20m")),
+        Call("ml20m_predict_ref", dist_predict_ref, (big, "ml20m")),
+        Call("blockwise_2m", dist_learn, ("blockwise", m2,
+                                          SlimConfig(**DIST_2M_CFG)))]
+    torch.cuda.empty_cache()
+    nranks = torch.cuda.device_count()
+    (nccl, nccl_s) = _timed(lambda: run_world(
+        run_calls, nranks, args=(calls, "cuda"), device="cuda",
+        timeout_s=900))
+    (gloo, gloo_s) = _timed(lambda: run_world(
+        run_calls, 2, args=(ml1m, "cuda"), device="cuda", backend="gloo",
+        timeout_s=600))
+    paths["dist_gloo2"] = paths["dist_ml1m"]
+
+    def record(ranks, keys):
+        return {k: dict(ranks[0][k]["result"], seconds=ranks[0][k]["seconds"])
+                for k in keys}
+
+    def launches(ranks, keys):
+        return {name: sum(r[k]["launches"][name] for r in ranks for k in keys)
+                for name in ranks[0][keys[0]]["launches"]}
+
+    out = {}
+    for path, keys in paths.items():
+        ranks = gloo if path == "dist_gloo2" else nccl
+        rec = record(ranks, keys)
+        rec["ranks"], rec["world_s"] = len(ranks), (
+            gloo_s if path == "dist_gloo2" else nccl_s)
+        out[path] = (rec, launches(ranks, keys))
+        print(f"{path}:", json.dumps(rec, default=lambda a: "..."),
+              flush=True)
+        for k in keys:
+            if k != "ml20m_predict":      # its lists are checked below
+                _same_on_ranks(path, ranks, k)
+    out["dist_2m"][0]["datagen_s"] = gen_s
+
+    # gates
+    for k in ("ml20m_replicated", "ml20m_sharded_g"):
+        st = out["dist_ml20m"][0][k]
+        tag = f"dist {k}"
+        check_gates(tag, dict(loss=st["objective"], nnz=st["model_nnz"]))
+        check(abs(st["objective"] - phase4["objective"])
+              <= DIST_OBJ_RTOL * phase4["objective"]
+              and abs(st["model_nnz"] - phase4["model_nnz"])
+              <= DIST_NNZ_RTOL * phase4["model_nnz"],
+              f"{tag}: {st['objective']} / {st['model_nnz']} vs phase 4's "
+              f"{phase4['objective']} / {phase4['model_nnz']}")
+    pred = out["dist_ml20m"][0]["ml20m_predict"]
+    ref = nccl[0]["ml20m_predict_ref"]["result"]
+    pred["agree"] = check_agree("dist sharded predict", pred.pop("head"),
+                                ref)
+    check(pred["users"] == trn.nrows, "sharded predict lost users")
+    st = out["dist_2m"][0]["blockwise_2m"]
+    check(abs(st["objective"] - AMAZON2M_OBJ) <= 1e-4 * AMAZON2M_OBJ,
+          f"2M-item blockwise objective {st['objective']}")
+    one, two = out["dist_ml1m"][0], out["dist_gloo2"][0]
+    for k in ("replicated", "blockwise", "sharded_g"):
+        _check_same_fit(f"dist ML-1M {k}", dict(loss=one[k]["objective"],
+                                                nnz=one[k]["model_nnz"]),
+                        ML1M_OBJ, ML1M_NNZ)
+        check(abs(two[k]["objective"] - one[k]["objective"])
+              <= DIST_OBJ_RTOL * one[k]["objective"]
+              and abs(two[k]["model_nnz"] - one[k]["model_nnz"])
+              <= DIST_NNZ_RTOL * one[k]["model_nnz"],
+              f"gloo2 {k} {two[k]} vs one world's {one[k]}")
+    for a, b in zip(one["grid"]["per_point"], two["grid"]["per_point"]):
+        check(a["nnz"] == b["nnz"] and abs(a["loss"] - b["loss"])
+              <= DIST_OBJ_RTOL * a["loss"], f"gloo2 grid {b} vs {a}")
+    return out
+
+
+def kernel_checks(dev, profile=None):
+    """Phase 2: every kernel against its plain version (see the module
+    docstring); returns the check records."""
+    rng = np.random.default_rng(0)
+    large = _sweep_inputs(dev, rng, 27278, 20000, 2_000_000, 1024, large=True)
+    checks = [check_densify(dev, rng)]
+    row = [_sweep_inputs(dev, rng, n, 4 * n, 40 * n, 512, large=False)
+           for n in (300, 4000)]
+    checks += [check_sweep(row[0]), check_sweep(row[1]),
+               check_sweep_large(large, all_active=True),
+               check_sweep_large(large, all_active=False),
+               check_sweep_panel(large, "v3", all_active=False),
+               check_sweep_panel(large, "v3", all_active=True),
+               check_sweep_panel(large, "eager", all_active=False),
+               check_sweep_panel(large, "eager", all_active=True),
+               check_pack(dev, rng),
+               # a packed grid block straddling two points (phases 10, 10b)
+               check_sweep(mixed_regs(row[1]), note=" mixed regs"),
+               check_sweep_large(mixed_regs(large), all_active=False,
+                                 note=" mixed regs")]
+    if profile is not None:
+        profile_sweep(large, row[1], profile)
+    del large, row
+    # phase 7's compact FSLIM blocks: B 1024 on unions of up to 4,096 (row
+    # 1) and of 6,144-8,192 (row 4), about 50 active coordinates a column
+    for n in (2000, 4000):
+        checks.append(check_sweep(_sweep_inputs(
+            dev, rng, n, 4 * n, 40 * n, 1024, large=False,
+            nnbrs=FSLIM_CFG["nnbrs"])))
+    checks.append(check_sweep_large(_sweep_inputs(
+        dev, rng, 8000, 32000, 320_000, 1024, large=True,
+        nnbrs=FSLIM_CFG["nnbrs"]), all_active=False))
+    for c in checks:
+        print("check:", json.dumps(c), flush=True)
+    return checks
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "all"], default="all",
-                    help="kernels: stop after the kernel checks")
+    ap.add_argument("--only", choices=["kernels", "dist", "all"],
+                    default="all",
+                    help="kernels: stop after the kernel checks; dist: the "
+                         "ML-20M learn and the distributed paths only")
     ap.add_argument("--profile", metavar="DIR",
                     help="run one sweep and the ML-20M phase under "
                          "torch.profiler and write their per-kernel device "
@@ -1466,37 +1726,7 @@ def main(argv=None):
     _build.lib()
     lap("build")
 
-    rng = np.random.default_rng(0)
-    large = _sweep_inputs(dev, rng, 27278, 20000, 2_000_000, 1024, large=True)
-    checks = [check_densify(dev, rng)]
-    row = [_sweep_inputs(dev, rng, n, 4 * n, 40 * n, 512, large=False)
-           for n in (300, 4000)]
-    checks += [check_sweep(row[0]), check_sweep(row[1]),
-               check_sweep_large(large, all_active=True),
-               check_sweep_large(large, all_active=False),
-               check_sweep_panel(large, "v3", all_active=False),
-               check_sweep_panel(large, "v3", all_active=True),
-               check_sweep_panel(large, "eager", all_active=False),
-               check_sweep_panel(large, "eager", all_active=True),
-               check_pack(dev, rng),
-               # a packed grid block straddling two points (phases 10, 10b)
-               check_sweep(mixed_regs(row[1]), note=" mixed regs"),
-               check_sweep_large(mixed_regs(large), all_active=False,
-                                 note=" mixed regs")]
-    if args.profile is not None:
-        profile_sweep(large, row[1], args.profile)
-    del large, row
-    # phase 7's compact FSLIM blocks: B 1024 on unions of up to 4,096 (row
-    # 1) and of 6,144-8,192 (row 4), about 50 active coordinates a column
-    for n in (2000, 4000):
-        checks.append(check_sweep(_sweep_inputs(
-            dev, rng, n, 4 * n, 40 * n, 1024, large=False,
-            nnbrs=FSLIM_CFG["nnbrs"])))
-    checks.append(check_sweep_large(_sweep_inputs(
-        dev, rng, 8000, 32000, 320_000, 1024, large=True,
-        nnbrs=FSLIM_CFG["nnbrs"]), all_active=False))
-    for c in checks:
-        print("check:", json.dumps(c), flush=True)
+    checks = [] if args.only == "dist" else kernel_checks(dev, args.profile)
     lap("kernels")
     if args.only == "kernels":
         return 0
@@ -1521,12 +1751,11 @@ def main(argv=None):
               ("api", lambda: run_api(dev)),
               ("checkpoint", lambda: run_checkpoint(dev, trn,
                                                     results["ml20m"])))
+    if args.only == "dist":
+        drives = tuple(d for d in drives if d[0] == "ml20m")
     by_path = {}
-    for path, drive in drives:
-        for w in wrappers.values():
-            w.launches = 0
-        results[path] = drive()
-        counts = {k: w.launches for k, w in wrappers.items()}
+
+    def path_launched(path, counts):
         by_path[path] = counts
         print(f"launches {path}:", json.dumps(counts), flush=True)
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
@@ -1534,7 +1763,19 @@ def main(argv=None):
         stray = [k for k, v in counts.items()
                  if v and k not in PATH_KERNELS[path]]
         check(not stray, f"{path} path launched {stray}: {counts}")
+
+    for path, drive in drives:
+        for w in wrappers.values():
+            w.launches = 0
+        results[path] = drive()
+        path_launched(path, {k: w.launches for k, w in wrappers.items()})
         lap(path)
+    for path, (rec, counts) in run_dist(trn, results["ml20m"]).items():
+        results[path] = rec
+        path_launched(path, counts)
+    lap("dist")
+    if args.only == "dist":
+        return 0
 
     by_name = {}
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

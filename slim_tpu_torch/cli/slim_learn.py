@@ -4,11 +4,17 @@ CLI parity with src/programs/slim_learn.c + cmdline_learn.c: same flags,
 defaults (l1r=l2r=1.0, optTol=1e-7, niters=10000, algo=cd, simtype=cos) and
 positional ``train-file [model-file]`` with default model name
 ``slim.model`` (cmdline_learn.c:260-263).
+
+``--dist replicated|blockwise|sharded_g`` learns across a world of ranks,
+one per device: launched by ``torchrun --nproc-per-node N`` (NCCL on the
+cards, gloo with ``-device=cpu``), or plainly as a one-rank world.  Rank 0
+prints and writes the model.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 from ..api import learn
 from ..config import SlimConfig
@@ -37,28 +43,47 @@ def main(argv=None):
     parser.add_argument("--dist", default="none",
                         choices=["none", "replicated", "blockwise",
                                  "sharded_g"],
-                        help="distributed learn (not ported yet)")
+                        help="distributed learn mode, one rank per device "
+                             "(run under torchrun)")
     add_device_flag(parser)
     parser.add_argument("trnfile")
     parser.add_argument("mdlfile", nargs="?", default="slim.model")
     args = parser.parse_args(normalise_argv(sys.argv[1:] if argv is None
                                             else argv))
-    if args.dist != "none":
-        raise NotImplementedError("--dist: distributed learn is not ported "
-                                  "yet")
-    setup_logging(args.dbglvl)
-    banner()
+    if args.dist == "none":
+        return _learn(args, None, True)
+    if args.algo != "cd":
+        raise ValueError("--dist learns with CD; -algo=admm runs on one "
+                         "device")
+    import torch.distributed as dist
+
+    from ..parallel.mesh import make_mesh
+
+    mesh = make_mesh(device=args.device)
+    try:
+        return _learn(args, mesh, dist.get_rank() == 0)
+    finally:
+        dist.destroy_process_group()
+
+
+def _learn(args, mesh, verbose: bool):
+    """The learn of ``main``; with ``mesh`` across its ranks.  Only a
+    ``verbose`` rank prints and writes the model."""
+    say = print if verbose else (lambda *a, **k: None)
+    if verbose:
+        setup_logging(args.dbglvl)
+        banner()
 
     tmat = read_matrix(args.trnfile, fmt=args.ifmt)
-    print(f"  trnfile: {args.trnfile}, nrows: {tmat.nrows}, "
-          f"ncols: {tmat.ncols}, nnz: {tmat.nnz}")
-    print(f"  l1r: {args.l1r:.2e}, l2r: {args.l2r:.2e}, "
-          f"binarize: {'Yes' if args.binarize else 'No'}")
-    print(f"  solver: {args.algo}, optTol: {args.optTol:.2e}, "
-          f"niters: {args.niters}")
-    print(f"  mdlfile: {args.mdlfile}")
-    print(f"  simtype: {args.simtype}, nnbrs: {args.nnbrs}")
-    print("\nEstimating model...")
+    say(f"  trnfile: {args.trnfile}, nrows: {tmat.nrows}, "
+        f"ncols: {tmat.ncols}, nnz: {tmat.nnz}")
+    say(f"  l1r: {args.l1r:.2e}, l2r: {args.l2r:.2e}, "
+        f"binarize: {'Yes' if args.binarize else 'No'}")
+    say(f"  solver: {args.algo}, optTol: {args.optTol:.2e}, "
+        f"niters: {args.niters}")
+    say(f"  mdlfile: {args.mdlfile}")
+    say(f"  simtype: {args.simtype}, nnbrs: {args.nnbrs}")
+    say("\nEstimating model...")
 
     if args.binarize:
         tmat = tmat.binarize()
@@ -81,14 +106,25 @@ def main(argv=None):
         nnbrs=args.nnbrs, simtype=args.simtype, algo=args.algo,
         ordered=int(args.ordered), dbglvl=args.dbglvl,
         nthreads=args.nthreads, block_size=args.blocksize)
-    model, stats = learn(tmat, cfg, imodel=imodel, device=args.device)
+    if mesh is None:
+        model, stats = learn(tmat, cfg, imodel=imodel, device=args.device)
+    else:
+        from ..parallel import dist as D
 
-    if args.mdlfile:
+        fn = {"replicated": D.distributed_learn,
+              "blockwise": D.distributed_learn_blockwise,
+              "sharded_g": D.distributed_learn_sharded_g}[args.dist]
+        t0 = time.perf_counter()
+        model, stats = fn(tmat, cfg, mesh, imodel=imodel)
+        stats["learn_s"] = time.perf_counter() - t0
+        say(f"  dist: {args.dist}, ranks: {stats['ndevices']}")
+
+    if args.mdlfile and verbose:
         write_matrix(model, args.mdlfile, fmt=mfmt)
-    print(f"\nmodel nnz: {model.nnz}  loss: {stats.get('loss', 0):.5e}  "
-          f"learn: {stats['learn_s']:.2f}s")
-    print("\nDone.")
-    print("-" * 66)
+    say(f"\nmodel nnz: {model.nnz}  loss: {stats.get('loss', 0):.5e}  "
+        f"learn: {stats['learn_s']:.2f}s")
+    say("\nDone.")
+    say("-" * 66)
     return 0
 
 

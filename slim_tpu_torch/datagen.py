@@ -10,6 +10,8 @@ movies), uniform user activity, implicit 0/1 feedback.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 from .types import CSR
@@ -52,3 +54,52 @@ def synth_ml20m(seed: int = 0, scale: float = 1.0) -> CSR:
                           max(int(ML20M_NCOLS * scale), 16),
                           max(int(ML20M_NNZ * scale * scale), 64),
                           seed=seed)
+
+
+def zipf(rng, a: float, size: int) -> np.ndarray:
+    """``rng.zipf(a, size)`` as numpy 2.0 draws it, whatever numpy runs:
+    later versions changed the rejection sampler's uniform, so the same
+    seed gives other large draws (numpy 2.3: 1,313 for 1,316).  Each try
+    takes two doubles U, V of ``rng.random()``; X = floor((1 - U)^(-1 /
+    (a - 1))) is kept when V X (T - 1) / (b - 1) <= T / b, T = (1 +
+    1/X)^(a - 1), b = 2^(a - 1).  Draws of 2^40 and above are recomputed
+    with the C library's pow, whose last bit numpy's vector pow does not
+    always give."""
+    am1 = a - 1.0
+    b = 2.0 ** am1
+    out, got = [], 0
+    while got < size:
+        need = size - got
+        d = rng.random(2 * (need + need // 2 + 64)).reshape(-1, 2)
+        U, V = 1.0 - d[:, 0], d[:, 1]
+        with np.errstate(over="ignore", divide="ignore", invalid="ignore"):
+            X = np.floor(np.power(U, -1.0 / am1))
+            T = np.power(1.0 + 1.0 / X, am1)
+        for i in np.nonzero(X >= 2.0 ** 40)[0]:
+            try:
+                X[i] = math.floor(math.pow(U[i], -1.0 / am1))
+            except OverflowError:          # beyond a double: rejected
+                X[i] = math.inf
+            T[i] = math.pow(1.0 + 1.0 / X[i], am1)
+        ok = (X <= float(np.iinfo(np.int64).max)) & (X >= 1.0)
+        with np.errstate(invalid="ignore"):
+            ok &= V * X * (T - 1.0) / (b - 1.0) <= T / b
+        out.append(X[ok].astype(np.int64))
+        got += out[-1].size
+    return np.concatenate(out)[:size]
+
+
+def synth_longtail(nrows: int = 50_000, ncols: int = 2_000_000,
+                   nnz: int = 400_000, nhot: int = 2000,
+                   seed: int = 0) -> CSR:
+    """The 2M-item long-tail workload of scripts/amazon2m_dryrun.py (its
+    defaults): ``nnz`` implicit events, users uniform, items zipf(1.2)
+    (:func:`zipf`, numpy 2.0's draws) over ``nhot`` hot items spread
+    across the whole id space (item = hot * 997 mod ncols), so most of the
+    catalogue is never rated."""
+    rng = np.random.default_rng(seed)
+    users = rng.integers(0, nrows, nnz)
+    hot = (zipf(rng, 1.2, nnz * 2) % nhot)[:nnz]
+    items = hot * 997 % ncols
+    return CSR.from_ijv(users, items, np.ones(nnz, np.float32), nrows,
+                        ncols).binarize()

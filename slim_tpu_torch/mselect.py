@@ -12,6 +12,13 @@ point's learn warm-starts from the previous point's model; the solver
 keeps that model on the device as a pack, which serves the point's
 evaluation and then the next point's warm start (only its dense form is
 dropped in between).  ADMM points solve cold on the shared Gram.
+
+With ``mesh`` (a :func:`slim_tpu_torch.parallel.make_mesh` mesh, every
+rank calling) the Gram is all-reduced once from the ranks' row shards and
+each point's columns are solved across the ranks
+(``parallel.dist.distributed_learn``; the packed grid:
+``distributed_grid``), CD only; every rank gets every model and runs the
+evaluation itself, and no model stays on the device as a pack.
 """
 
 from __future__ import annotations
@@ -89,18 +96,27 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
     ``point_callback(rec, model)`` runs after each evaluation, as in the
     JAX package; its ``rec`` is a copy of the point's record with
     ``rec["pack"]``, the retained
-    :class:`~slim_tpu_torch.predict.DeviceModelPack` or None."""
-    if mesh is not None:
-        raise NotImplementedError("mesh-distributed mselect is not ported "
-                                  "yet (ROADMAP Queue 1: parallel/)")
-    dev = resolve_device(device)
+    :class:`~slim_tpu_torch.predict.DeviceModelPack` or None.  ``mesh``
+    solves each point across its ranks (the module docstring); the
+    rank's own card is ``device``."""
     train, test, fmarker = _aligned(train, test)
     npad = bucket_npad(train.ncols)
-    gram = compute_gram(train, cfg.gram, pad_to=npad, device=dev)
     admm = cfg.algo == "admm"
+    if mesh is not None:
+        from .parallel.dist import distributed_learn, sharded_gram_sparse
+        from .parallel.mesh import mesh_device
+
+        if admm:
+            raise ValueError("mesh-distributed mselect supports algo='cd'")
+        dev = mesh_device(mesh)
+        gram = sharded_gram_sparse(train, mesh, pad_to=npad)
+    else:
+        dev = resolve_device(device)
+        gram = compute_gram(train, cfg.gram, pad_to=npad, device=dev)
     # the retained pack serves the dense predict route only, so the model
     # stays on the device whenever that route takes the catalogue
-    keep_dev = not admm and npad <= SPARSE_PREDICT_THRESHOLD
+    keep_dev = mesh is None and not admm \
+        and npad <= SPARSE_PREDICT_THRESHOLD
 
     results = []
     best = _best()
@@ -111,6 +127,9 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
         if admm:
             model, stats = estimate_model_admm(train, pcfg, gram=gram,
                                                device=dev)
+        elif mesh is not None:
+            model, stats = distributed_learn(train, pcfg, mesh, imodel=model,
+                                             gram=gram)
         else:
             model, stats = estimate_model_cd(train, pcfg, imodel=model,
                                              gram=gram,
@@ -158,21 +177,27 @@ def mselect_grid(train: CSR, test: CSR, cfg: SlimConfig, arrayl1, arrayl2,
     (each block's columns carry their point's regularisation; no warm
     starts) and evaluates each point as the walk does.  One solve serves
     every point, so each record's ``time`` is the grid average
-    (``time_kind="grid_average"``) and the result has ``grid_time``."""
+    (``time_kind="grid_average"``) and the result has ``grid_time``.
+    With ``mesh`` the walk's points, or the packed grid's blocks, are
+    solved across the ranks (the module docstring)."""
     points = [(l1, l2) for l1 in arrayl1 for l2 in arrayl2]
     if not parallel:
         return mselect_core(train, test, cfg, points, mesh=mesh,
                             device=device)
-    if mesh is not None:
-        raise NotImplementedError("mesh-distributed mselect is not ported "
-                                  "yet (ROADMAP Queue 1: parallel/)")
     if cfg.algo != "cd":
         raise ValueError("mselect_grid(parallel=True) solves with CD; "
                          f"algo {cfg.algo!r} walks with parallel=False")
-    dev = resolve_device(device)
     train, test, fmarker = _aligned(train, test)
     t0 = time.perf_counter()
-    solved = estimate_grid_cd(train, cfg, points, device=dev)
+    if mesh is not None:
+        from .parallel.dist import distributed_grid
+        from .parallel.mesh import mesh_device
+
+        dev = mesh_device(mesh)
+        solved = distributed_grid(train, cfg, points, mesh)
+    else:
+        dev = resolve_device(device)
+        solved = estimate_grid_cd(train, cfg, points, device=dev)
     t_solve = time.perf_counter() - t0
 
     results = []

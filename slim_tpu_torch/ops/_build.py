@@ -4,7 +4,10 @@ Every source compiles with its own ``nvcc`` process, all started together,
 into an object file; one link step makes ``libslim_kernels_<hash>.so`` in
 ``build/kernels/`` beside the package (listed in .gitignore).  The hash
 covers the sources and the flags, so the library is rebuilt only when a
-source changes.  The library has a plain C interface loaded with ctypes:
+source changes.  The objects and the unlinked library carry the building
+process's id, and the library takes its final name by ``os.replace``, so
+processes that build at once (the ranks of a world, test workers) never
+read another's half-written file.  The library has a plain C interface loaded with ctypes:
 pointers and the CUDA stream travel as ``c_void_p``, and every entry
 returns ``cudaGetLastError()``, which :func:`check` turns into an
 exception.  Nothing here runs at import time.
@@ -74,7 +77,7 @@ def build() -> Path:
     nvcc = nvcc_path()
     objs, procs = [], []
     for src in _sources():
-        obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+        obj = BUILD_DIR / f"{src.stem}_{tag}.{os.getpid()}.o"
         objs.append(obj)
         procs.append((src, subprocess.Popen(
             [nvcc, *FLAGS, "-c", str(src), "-o", str(obj)],
@@ -90,6 +93,8 @@ def build() -> Path:
     link = subprocess.run([nvcc, ARCH, "-shared", *map(str, objs), "-o",
                            str(tmp)], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT)
+    for obj in objs:
+        obj.unlink()
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed\n"
                            + link.stdout.decode(errors="replace"))

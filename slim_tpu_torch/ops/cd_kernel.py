@@ -185,15 +185,26 @@ def cd_solve_block_compact(G, S, j_ids, caps, x0s, l1r, l2r, optTol, gen,
     """Solve a block in the compact coordinate space S (exact: coordinates
     outside S are inactive for every column of the block; for FSLIM, S is
     the union of the columns' neighbour sets)."""
-    npad = G.shape[0]
-    B = j_ids.shape[0]
     Sl = S.long()
-    l1v, l2v = per_col(l1r, B, G.device), per_col(l2r, B, G.device)
     Gs = G.index_select(0, Sl).index_select(1, Sl)          # (K, K)
-    diag_full = torch.diagonal(G)
-    diag_s = diag_full[Sl]
     gjs = G[:, j_ids.long()].T[:, Sl].contiguous()          # (B, K)
-    yty = diag_full[j_ids.long()]
+    yty = torch.diagonal(G)[j_ids.long()]
+    return cd_solve_compact(Gs, S, G.shape[0], j_ids, gjs, yty, caps, x0s,
+                            l1r, l2r, optTol, gen, shuffle=shuffle,
+                            impl=impl, x0_zero=x0_zero, variant=variant,
+                            fslim_nnbrs=fslim_nnbrs, simtype=simtype)
+
+
+def cd_solve_compact(Gs, S, npad, j_ids, gjs, yty, caps, x0s, l1r, l2r,
+                     optTol, gen, shuffle=True, impl="plain", x0_zero=False,
+                     variant="v4", fslim_nnbrs=0, simtype="cos"):
+    """The compact solve from its pieces: Gs = G[S, S] (K, K), the
+    targets' rows gjs = G[j, S] (B, K) and yty = G[j, j] (B,).  S holds
+    coordinate ids below ``npad``, ascending, padded with npad - 1 (never
+    active).  The distributed learns build the pieces from sharded data."""
+    B = j_ids.shape[0]
+    l1v, l2v = per_col(l1r, B, Gs.device), per_col(l2r, B, Gs.device)
+    diag_s = torch.diagonal(Gs)
     if fslim_nnbrs > 0:
         active = fslim_active_mask(gjs, diag_s, j_ids, npad, fslim_nnbrs,
                                    simtype, col_ids=S,

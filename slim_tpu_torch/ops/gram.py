@@ -63,39 +63,35 @@ def _row_block(w: int) -> int:
     return 256
 
 
-def _contract(G, acc_i32, blkT):
-    """G += blkT · blkTᵀ (int8 -> int32 into acc_i32 for binary blocks)."""
-    if blkT.dtype == torch.int8:
-        acc_i32 += torch._int_mm(blkT, blkT.t())
-    else:
-        G += blkT @ blkT.t()
-
-
-def gram_device(mat: CSR, pad_to: int | None = None, device=None):
-    """Device Gram through the densify kernel.
+def gram_partial(mat: CSR, n: int, dev, col_map=None, cols=None):
+    """The Gram of ``mat``'s rows through the densify kernel, in the
+    accumulator's own type: int32 for binary data (exact co-occurrence
+    counts), float32 otherwise; (n, n), ``n`` a multiple of 128.
 
     Rows are taken in nnz-sorted order (G is invariant to row order) in
-    blocks densified by :func:`densify_runs`: each slab's entry width is the
-    pow2 ceiling of its longest row, and rows wider than the densify window
-    WCAP take several shifted kernel passes, so every entry goes through the
-    kernel.  Returns a (npad, npad) float32 tensor on ``device`` (default:
-    :func:`~slim_tpu_torch.utils.resolve_device`)."""
-    pin_f32()
-    dev = resolve_device(device)
-    n = _round_up(max(pad_to if pad_to is not None else mat.ncols, 1), 128)
-    G = torch.zeros((n, n), dtype=torch.float32, device=dev)
-    if mat.nnz == 0:
-        return G
+    blocks densified by :func:`densify_runs`: each slab's entry width is
+    the pow2 ceiling of its longest row, and rows wider than the densify
+    window WCAP take several shifted kernel passes, so every entry goes
+    through the kernel.  ``col_map`` (an int32 tensor on ``dev``, one entry
+    per column of ``mat``) moves column c to position col_map[c]; positions
+    >= n drop, so a map onto a set S gives the compact Gram G[S, S].
+    ``cols`` = (c0, c1) contracts against those columns only: the (n, c1 -
+    c0) column block G[:, c0:c1]."""
+    c0, c1 = cols if cols is not None else (0, n)
     vals = mat.values()
     ones = _is_binary(vals)
-    acc = torch.zeros((n, n), dtype=torch.int32, device=dev) if ones else None
+    acc = torch.zeros((n, c1 - c0), dtype=torch.int32 if ones
+                      else torch.float32, device=dev)
+    if mat.nnz == 0:
+        return acc
     out_dt = torch.int8 if ones else torch.float32
-
     row_nnz = np.diff(mat.indptr).astype(np.int64)
     order = np.argsort(-row_nnz, kind="stable")
     snnz = row_nnz[order]
 
     idx_d = mat.dev_put("idx32", lambda: mat.indices.astype(np.int32), dev)
+    if col_map is not None:
+        idx_d = col_map[idx_d.long()]
     val_d = None if ones else mat.dev_put(
         "val32", lambda: vals.astype(np.float32), dev)
     cur = 0
@@ -111,11 +107,24 @@ def gram_device(mat: CSR, pad_to: int | None = None, device=None):
         rl[:take] = row_nnz[rows]
         blkT = densify_runs(idx_d, val_d, rs, rl, n, None,
                             torch.zeros((n, R), dtype=out_dt, device=dev))
-        _contract(G, acc, blkT)
+        right = blkT[c0:c1].t()
+        if ones:
+            acc += torch._int_mm(blkT, right)
+        else:
+            acc += blkT @ right
         cur += take
-    if ones:
-        G += acc.to(torch.float32)
-    return G
+    return acc
+
+
+def gram_device(mat: CSR, pad_to: int | None = None, device=None):
+    """Device Gram through the densify kernel (:func:`gram_partial`).
+    Binary data densifies to int8 and contracts int8 -> int32, valued data
+    in float32.  Returns a (npad, npad) float32 tensor on ``device``
+    (default: :func:`~slim_tpu_torch.utils.resolve_device`)."""
+    pin_f32()
+    dev = resolve_device(device)
+    n = _round_up(max(pad_to if pad_to is not None else mat.ncols, 1), 128)
+    return gram_partial(mat, n, dev).to(torch.float32)
 
 
 def compute_gram(mat: CSR, mode: str = "auto", pad_to: int | None = None,

@@ -174,11 +174,12 @@ class _Checkpoint:
     (a JAX run's files in the same directory are never taken), the
     effective block width ``B`` after the compact clamp, which numbers the
     blocks, and ``compact_threshold`` and SLIM_COMPACT_FRAC, which pick
-    each block's coordinate space."""
+    each block's coordinate space.  ``extra`` tells apart drivers whose
+    blocks cover other columns (the distributed superblocks)."""
 
     def __init__(self, cfg: SlimConfig, train: CSR, n: int, B: int,
-                 imodel: CSR | None = None):
-        h = hashlib.sha256(b"slim_tpu_torch")
+                 imodel: CSR | None = None, extra: bytes = b""):
+        h = hashlib.sha256(b"slim_tpu_torch" + extra)
         h.update(np.asarray([train.nrows, n, train.nnz]).tobytes())
         h.update(np.ascontiguousarray(train.indptr).tobytes())
         h.update(np.ascontiguousarray(train.indices).tobytes())
@@ -269,7 +270,7 @@ def _col_stats(out, nJ: int):
 
 def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                       gram=None, keep_device_model=False, warm_pack=None,
-                      device=None):
+                      device=None, shard=None):
     """Estimate the SLIM / FSLIM model with batched coordinate descent on
     ``device`` (default: the card; raises without one).
 
@@ -291,7 +292,16 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     ``cfg.checkpoint_dir`` set it is None, as in the JAX package
     (restored blocks have no device pack).  ``cfg.checkpoint_dir``:
     blocks found there (:class:`_Checkpoint`) are loaded, the others
-    solved and written."""
+    solved and written.
+
+    ``shard`` = (rank, size) solves only the blocks b with b % size ==
+    rank (the replicated distributed learn's round-robin) and gathers
+    every rank's entries and sums before the assembly, so every rank of
+    the process group returns the whole model and its stats
+    (``parallel.dist.distributed_learn``)."""
+    if shard is not None and keep_device_model:
+        raise ValueError("keep_device_model needs every block on one "
+                         "device, not a shard")
     dev = resolve_device(device)
     pin_f32()
     clock = PhaseTimer(dev)
@@ -320,6 +330,8 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     if use_compact:
         B = min(B, COMPACT_BMAX)
     nblocks = (n + B - 1) // B
+    mine = range(nblocks) if shard is None else \
+        range(shard[0], nblocks, shard[1])
     ckpt = _Checkpoint(cfg, train, n, B, imodel if use_warm else None) \
         if cfg.checkpoint_dir else None
     acc = _PackAccum() if keep_device_model and ckpt is None else None
@@ -338,15 +350,16 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     if use_compact:
         if fslim_nnbrs:
             # one block's (B, npad) neighbour top-k at a time
-            rows = [block_union_mask(g, block_ids(blk)[2], cfg.l1r, npad,
-                                     **fslim) for blk in range(nblocks)]
+            rows = {blk: block_union_mask(g, block_ids(blk)[2], cfg.l1r,
+                                          npad, **fslim) for blk in mine}
         else:
             u = block_union_flags(g, nblocks, B, float(cfg.l1r))
             s_dev, cnt = compact_union_ids(u)
             del u
-            rows = zip(s_dev, cnt.cpu().numpy())
+            cnt = cnt.cpu().numpy()
+            rows = {blk: (s_dev[blk], cnt[blk]) for blk in mine}
         frac = compact_frac()
-        for blk, (s_row, c) in enumerate(rows):
+        for blk, (s_row, c) in rows.items():
             K = min(bucket_npad(max(int(c), 1)), npad)
             if K <= frac * npad and K < npad:
                 S = s_row[:K].contiguous()
@@ -407,7 +420,7 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                       int(niters_h.sum()), int(niters_h.max()) if nJ else 0)
 
     blocks = []
-    for blk in range(nblocks):
+    for blk in mine:
         rec = ckpt.load(blk) if ckpt is not None else None
         if rec is not None:
             clock.lap("restore")
@@ -418,20 +431,23 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                 clock.lap("checkpoint")
         blocks.append(rec)
 
-    model = CSR.from_ijv(np.concatenate([b.coord for b in blocks]),
-                         np.concatenate([b.target for b in blocks]),
-                         np.concatenate([b.vals for b in blocks]),
-                         nrows=n, ncols=n, no_duplicates=True)
+    parts = ([b.coord for b in blocks], [b.target for b in blocks],
+             [b.vals for b in blocks])
+    sums = (sum(b.err for b in blocks), sum(b.obj for b in blocks),
+            sum(b.niters for b in blocks), sum(b.sweeps for b in blocks))
+    if shard is not None:
+        parts, sums = _gathered(*parts, sums, dev)
+        clock.lap("gather")
+    model = _assemble(*parts, n)
     clock.lap("assembly")
-    total_err = sum(b.err for b in blocks)
-    total_obj = sum(b.obj for b in blocks)
+    total_err, total_obj, niters, sweeps = sums
     stats = {
         "loss": total_obj,
         "fit": total_err,
         "ffrac": total_err / total_obj if total_obj else 0.0,
         "nnz": model.nnz,
-        "niters": sum(b.niters for b in blocks),
-        "sweeps": sum(b.sweeps for b in blocks),
+        "niters": niters,
+        "sweeps": sweeps,
         "phases": dict(clock.phases),
     }
     if use_compact:
@@ -454,7 +470,34 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     return model, stats
 
 
-def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None):
+def _cat(parts, dt) -> np.ndarray:
+    return np.concatenate(parts) if parts else np.zeros(0, dt)
+
+
+def _assemble(coord, target, vals, n: int) -> CSR:
+    """The (n, n) model from lists of (rated item, target item, value)
+    arrays, each pair once."""
+    return CSR.from_ijv(_cat(coord, np.int32), _cat(target, np.int32),
+                        _cat(vals, np.float32), nrows=n, ncols=n,
+                        no_duplicates=True)
+
+
+def _gathered(coord, target, vals, sums, dev):
+    """A ``shard`` solve's entries (lists of arrays, as :func:`_assemble`
+    takes them) and summed column stats (err, obj, niters, sweeps) from
+    every rank of the process group, the same on each: the entries
+    all-gathered in rank order, the sums summed."""
+    from ..parallel.comm import all_gather_host, all_gather_triplets
+
+    tri = all_gather_triplets(_cat(coord, np.int32), _cat(target, np.int32),
+                              _cat(vals, np.float32), dev)
+    err, obj, niters, sweeps = all_gather_host(
+        np.asarray(sums, np.float64), dev).sum(axis=0).tolist()
+    return [[a] for a in tri], (err, obj, int(niters), int(sweeps))
+
+
+def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
+                     gram=None, shard=None):
     """Solve a whole (l1r, l2r) grid in one packed pass on ``device``
     (default: the card; raises without one).
 
@@ -466,7 +509,11 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None):
     its neighbours.  Each block is harvested through the pack kernel and
     its entries split by point.  Returns a list of (model, stats) aligned
     with ``points``; a point's loss, fit, nnz and niters are its columns'
-    sums, its ``sweeps`` the sweeps of the blocks that hold its columns."""
+    sums, its ``sweeps`` the sweeps of the blocks that hold its columns.
+    ``gram``: the item-space Gram on ``device`` (a shared or all-reduced
+    one); ``shard`` = (rank, size): only the blocks b with b % size ==
+    rank, each point gathered from every rank, as in
+    :func:`estimate_model_cd`."""
     dev = resolve_device(device)
     pin_f32()
     train = train.infer_ncols()
@@ -479,7 +526,7 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None):
     tri = [([], [], []) for _ in range(P)]   # (coord, target, val) lists
     st = np.zeros((P, 4), np.float64)        # (err, obj, niters, sweeps)
     if train.nnz:
-        g, p, _, _, caps_p, _ = _rank_space(train, cfg, npad, None, dev)
+        g, p, _, _, caps_p, _ = _rank_space(train, cfg, npad, gram, dev)
         fslim_nnbrs = int(cfg.nnbrs) if cfg.mtype in ("fslim", "ofslim") \
             else 0
         kw = dict(shuffle=cfg.shuffle, x0_zero=True,
@@ -487,7 +534,9 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None):
                   variant=pick_large_variant(B, npad), n_valid=n,
                   fslim_nnbrs=fslim_nnbrs, simtype=cfg.simtype)
         x0 = torch.zeros((B, npad), dtype=torch.float32, device=dev)
-        for v0 in range(0, P * n, B):
+        first, step = (0, B) if shard is None else \
+            (B * shard[0], B * shard[1])
+        for v0 in range(first, P * n, step):
             nv = min(B, P * n - v0)
             vids = np.arange(v0, v0 + nv)
             ranks, pts = vids % n, vids // n
@@ -522,13 +571,11 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None):
 
     results = []
     for pt in range(P):
-        coord, target, vals = (np.concatenate(a) if a else
-                               np.zeros(0, dt) for a, dt in
-                               zip(tri[pt], (np.int32, np.int32,
-                                             np.float32)))
-        model = CSR.from_ijv(coord, target, vals, nrows=n, ncols=n,
-                             no_duplicates=True)
-        err, obj, niters, sweeps = st[pt]
+        parts, sums = tri[pt], st[pt]
+        if shard is not None:
+            parts, sums = _gathered(*parts, sums, dev)
+        model = _assemble(*parts, n)
+        err, obj, niters, sweeps = sums
         results.append((model, {
             "loss": float(obj), "fit": float(err),
             "ffrac": float(err / obj) if obj else 0.0, "nnz": model.nnz,

@@ -488,3 +488,68 @@ def test_checkpoint_resume_on_card(dev, tmp_path):
     np.testing.assert_allclose(m2.to_dense(), m1.to_dense(), rtol=0,
                                atol=1e-6)
     np.testing.assert_allclose(s2["loss"], s1["loss"], rtol=1e-6)
+
+
+def _dist_calls(m, cfg, model):
+    from slim_tpu_torch.parallel import dist as PD
+    from slim_tpu_torch.parallel import launch as L
+
+    model = CSR.from_arrays(model.nrows, model.ncols, model.indptr,
+                            model.indices, model.data)
+    return [L.Call("replicated", PD.distributed_learn, (m, cfg)),
+            L.Call("blockwise", PD.distributed_learn_blockwise, (m, cfg)),
+            L.Call("sharded_g", PD.distributed_learn_sharded_g, (m, cfg)),
+            L.Call("predict", PD.sharded_predict, (model, m),
+                   dict(nrcmds=10))]
+
+
+@pytest.mark.parametrize("ranks,backend", [(1, "nccl"), (2, "gloo")])
+def test_distributed_learns_on_card_match_one_device(dev, ranks, backend):
+    """The three distributed learns in a one-rank NCCL world and in a
+    2-rank gloo world on one card: loss within 1e-5 rel and nnz within 1%
+    of the single-device learn on the card, the same model on every rank,
+    each learn through densify, the whole-array sweep and pack."""
+    from slim_tpu_torch import SlimConfig, learn
+    from slim_tpu_torch.parallel import launch as L
+
+    mat = random_csr(np.random.default_rng(13), 800, 600, density=0.04,
+                     implicit=True)
+    m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices, None)
+    cfg = SlimConfig(l1r=0.5, l2r=0.5, block_size=64)
+    ref_model, ref = learn(m, cfg, device=dev)
+    out = L.run_world(L.run_calls, ranks, args=(_dist_calls(m, cfg,
+                                                            ref_model),
+                                                "cuda"),
+                      device="cuda", backend=backend, timeout_s=600)
+    for mode in ("replicated", "blockwise", "sharded_g"):
+        (model, st) = out[0][mode]["result"]
+        assert abs(st["loss"] - ref["loss"]) <= 1e-5 * ref["loss"], mode
+        assert abs(st["nnz"] - ref["nnz"]) <= 0.01 * ref["nnz"], mode
+        assert all(r[mode]["result"][0] == model for r in out), mode
+        assert all(out[0][mode]["launches"][k] for k in
+                   ("densify", "cd_sweep", "pack")), out[0][mode]
+    ids, sc, cnt = out[0]["predict"]["result"]
+    want = predict_topn(ref_model, m, nrcmds=10, device=dev)
+    assert_topn_match((ids, sc, cnt), want)
+
+
+def test_one_rank_nccl_world_without_torchrun(dev):
+    """``make_mesh()`` with no device and no torchrun environment: a
+    one-rank NCCL world on the card, whose sharded Gram is the card's."""
+    import torch.distributed as dist
+
+    from slim_tpu_torch.parallel import dist as PD
+    from slim_tpu_torch.parallel import make_mesh
+
+    mat = random_csr(np.random.default_rng(5), 300, 150, density=0.1,
+                     implicit=True)
+    m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices, None)
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        got = PD.sharded_gram_sparse(m, mesh, pad_to=256)
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      G.gram_host(m, 256))
+    finally:
+        dist.destroy_process_group()

@@ -117,7 +117,8 @@ def test_dev_put_caches_per_device(rng):
 def test_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import slim_tpu_torch, slim_tpu_torch.cli.slim_learn, "
-            "slim_tpu_torch.cli.slim_predict, slim_tpu_torch.convert; "
+            "slim_tpu_torch.cli.slim_predict, slim_tpu_torch.convert, "
+            "slim_tpu_torch.parallel, slim_tpu_torch.parallel.launch; "
             "assert 'slim_tpu' not in sys.modules; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

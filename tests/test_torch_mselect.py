@@ -98,8 +98,9 @@ def test_mselect_grid_walks_l2_inner_and_rejects_unported_modes():
     with pytest.raises(ValueError, match="CD"):
         mselect_grid(trn, tst, SlimConfig(algo="admm"), [1.0], [1.0],
                      parallel=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        mselect_pairs(trn, tst, SlimConfig(), PAIRS, mesh=object())
+    # a mesh walk solves with CD only (tests/test_torch_dist.py runs it)
+    with pytest.raises(ValueError, match="algo='cd'"):
+        mselect_pairs(trn, tst, SlimConfig(algo="admm"), PAIRS, mesh=object())
 
 
 def _selected(out):

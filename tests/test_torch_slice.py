@@ -132,9 +132,12 @@ def test_compact_frac_knob_is_read_at_call_time(monkeypatch, frac, compact):
 
 
 def test_cli_rejects_unported_modes(tmp_path):
+    # the distributed learns are CD only (tests/test_torch_dist.py drives
+    # --dist); ADMM is refused before any process group starts
     trn = os.path.join(DATA, "synth-train.ijv")
-    with pytest.raises(NotImplementedError):
-        slim_learn.main(["-ifmt=ijv", "-dist=replicated", trn])
+    with pytest.raises(ValueError, match="CD"):
+        slim_learn.main(["-ifmt=ijv", "-dist=replicated", "-algo=admm",
+                         "-device=cpu", trn])
 
 
 @pytest.mark.parametrize("implicit", [False, True])
