@@ -3,11 +3,13 @@
     python3 chip_smoke.py            # everything, as a release check runs it
     python3 chip_smoke.py --only kernels   # build + kernel-vs-plain checks
     python3 chip_smoke.py --only dist      # phase 4's learn + phase 13
+    python3 chip_smoke.py --only native    # phases 3, 3b, 4, 7 + phase 14
     python3 chip_smoke.py --profile chiprun_out   # one sweep and phase 4
                                                   # under torch.profiler
 
 Phases (any failure exits non-zero, and no result line is printed):
-  1. card name and power limit (nvidia-smi); build the CUDA kernels.
+  1. card name and power limit (nvidia-smi); build the CUDA kernels and
+     the native host runtime (g++; a missing compiler fails the run).
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: densify (npad 28672), the whole-array row-major
      sweep (B 512 at npad 384, the synth path's, and 4096, the ML-1M
@@ -113,7 +115,34 @@ Phases (any failure exits non-zero, and no result line is printed):
      2-rank gloo world on cuda:0 (collectives staged through the host),
      against the NCCL world's results.  Every rank of a world returns the
      same model.  Each learn prints its seconds, cols/s, objective and nnz.
-  14. the kernels line.  Phases 3-13 (3b, 3c and 10b too) are each driven
+  14. the native host runtime (slim_tpu_torch.native) on the card's host:
+     its build seconds and the CPU count; native.cd_learn on the synth set
+     against its goldens, and at the ML-1M shape against the JAX package's
+     objective and nnz when the synth time scaled by columns x ratings
+     predicts it within 60 s (else a line says it was left out); phase 4's
+     model cut into 27 shuffled COO fragments and assembled through
+     solvers.cd._assemble (the native counting sort) and through scipy's
+     CSR.from_ijv over their concatenation (its path without a compiler),
+     both equal to the model entry for entry, both timed; the native predict
+     route against the card's dense route (the model densified in the
+     call, and resident) on the synth set, the ML-1M shape, the ML-20M
+     FSLIM model (every user), the first 16,384 users of phase 4's model,
+     and at the route's crossover (the ML-1M shape's model cut to its
+     first 383, 767 and 1,535 items, and the first 600 users of those,
+     of the ML-1M shape and of the FSLIM model): the same counts, scores
+     within 1e-5 rel, ids equal up to the order within runs of equal
+     scores, users/s of both and the route an unpinned call takes, which
+     must be the faster one wherever they differ by more than 1.25x (the
+     check comes last in the phase); native.gram_dense at the
+     ML-1M shape equal to the card's Gram; both tokenisers on the ML-1M
+     shape written as a csr file; ``SLIM_BENCH_SMALL=1 python3
+     bench_torch.py`` in a process of its own, its objective within 1e-4
+     rel of its native baseline's.  Every earlier phase pins its predict
+     route (``sparse=``, ``W_dev`` or SLIM_PREDICT_NATIVE_NPAD=0 around a
+     call that takes neither), so it measures the route it measured before
+     the native route was added; phase 4's top-N is unpinned and must stay
+     on the card.
+  15. the kernels line.  Phases 3-14 (3b, 3c and 10b too) are each driven
      with every launch counter set to 0 just before and read just after
      (in the ranks, summed over them, for phase 13's paths); each path
      must launch its own kernels (PATH_KERNELS) and no other (phase 8: no
@@ -238,7 +267,10 @@ PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
                 "dist_ml1m": ("densify", "cd_sweep", "pack"),
                 "dist_ml20m": ("densify", "cd_sweep_large", "pack"),
                 "dist_2m": ("densify", "cd_sweep", "pack"),
-                "dist_gloo2": ("densify", "cd_sweep", "pack")}
+                "dist_gloo2": ("densify", "cd_sweep", "pack"),
+                # phase 14: the card's dense predict and Gram beside the
+                # host's (densify); no solve on the card
+                "native": ("densify",)}
 WIDE_SWEEPS = ("cd_sweep_large", "cd_sweep_v3", "cd_sweep_eager")
 _SWEEP_UNIT = ("sweeps: one wrapper call enqueues, per 128-wide chunk of "
                "the visit order, a group kernel (GS chain) and a "
@@ -673,7 +705,9 @@ def run_synth(dev):
     tst = read_matrix(os.path.join(data, "synth-test.ijv"), fmt="ijv") \
         .infer_ncols()
     model, stats = learn(trn, SlimConfig(l1r=1.0, l2r=1.0), device=dev)
-    ids, _, counts = get_topn(model, trn, nrcmds=10, device=dev)
+    _KEPT["synth"] = model
+    ids, _, counts = get_topn(model, trn, nrcmds=10, sparse=False,
+                              device=dev)
     n = max(trn.ncols, tst.ncols, model.ncols)
     res = evaluate_topn(ids, counts, tst, determine_head_tail(trn, n))
     out = dict(loss=stats["loss"], nnz=stats["nnz"], hr=res.hr,
@@ -736,15 +770,17 @@ def run_ml1m(dev):
     calls = S.cd_sweep.launches - sweeps0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ids, sc, counts = predict_topn(model, trn, nrcmds=10, device=dev)
+    ids, sc, counts = predict_topn(model, trn, nrcmds=10, sparse=False,
+                                   device=dev)
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
+    _KEPT["ml1m"] = model
     # the first 256 users against the CPU path: the same counts, scores
     # within 1e-5 rel, and the same ids except at the near ties that
     # checks.ranked_mismatches forgives (f32 sums in another order may swap
     # such a pair); exact ties must come in the same (lowest-id) order
     ids_c, sc_c, cnt_c = predict_topn(model, _head_rows(trn, 256),
-                                      nrcmds=10, device="cpu")
+                                      nrcmds=10, sparse=False, device="cpu")
     differ, off_near = ranked_mismatches(ids[:256], sc[:256], ids_c, sc_c,
                                          cnt_c)
     solve_s = stats["phases"]["solve"]
@@ -928,8 +964,9 @@ def run_fslim(dev, trn, nhead=4096, ntime=16384):
     print("fslim learn:", json.dumps(out))
 
     serve = {}
+    _KEPT["fslim"] = model
     dense, t = _timed(lambda: predict_topn(model, trn, nrcmds=10,
-                                           device=dev))
+                                           sparse=False, device=dev))
     serve["dense_all"] = dict(users=trn.nrows, s=t, users_per_s=trn.nrows / t)
     W, serve["dense_model_s"] = _timed(lambda: densify_model(model,
                                                              device=dev))
@@ -1026,7 +1063,7 @@ def run_serve(dev, noracle=1024):
     for route in ("rows", "coo", "rows", "coo"):     # in turns
         with env(SLIM_PREDICT_COO_NPAD="1" if route == "coo" else "0"):
             res, t = _timed(lambda: predict_topn(model, hist, nrcmds=10,
-                                                 device=dev))
+                                                 sparse=True, device=dev))
         secs[route].append(t)
         if route == "rows":
             rows = res
@@ -1086,12 +1123,16 @@ def run_ml20m(dev, trn, profile_dir=None):
 
 def _learn_predict_ml20m(dev, trn):
     from slim_tpu_torch import SlimConfig, learn
+    from slim_tpu_torch import predict as P
     from slim_tpu_torch.predict import predict_topn
 
     cfg = SlimConfig(l1r=1.0, l2r=1.0, dbglvl=2, **ML20M_CFG)
     model, stats = learn(trn, cfg, device=dev)
+    _KEPT["ml20m"] = model
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    # unpinned: the router keeps this model on the card (its per-user work
+    # is far above the native route's threshold)
     ids, _, counts = predict_topn(model, trn, nrcmds=10, device=dev)
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
@@ -1100,8 +1141,11 @@ def _learn_predict_ml20m(dev, trn):
                sweeps=stats["sweeps"], niters=stats["niters"],
                objective=stats["loss"], model_nnz=stats["nnz"],
                predict_s=pred_s, predict_users_per_s=trn.nrows / pred_s,
+               predict_route=P.last_route,
                cols_per_s=trn.ncols / stats["learn_s"])
     print("ml20m:", json.dumps(out))
+    check(P.last_route == "dense",
+          f"the ML-20M predict took the {P.last_route} route")
     check(ids.shape == (trn.nrows, 10) and np.all(counts >= 0)
           and np.all(ids < trn.ncols), "predict output malformed")
     check_gates("ML-20M", stats)
@@ -1252,10 +1296,13 @@ def run_grid(dev):
     tst = synth_implicit(trn.nrows, trn.ncols, trn.nrows, seed=1)
     cfg = SlimConfig(**ML1M_CFG)
     counts0 = _launch_counts()
-    par = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, parallel=True,
-                       device=dev)
-    packed_launches = _since(counts0)
-    seq = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, device=dev)
+    # each point's evaluation on the card's dense route, as before phase 14
+    # added the native one (unpinned, the packed grid's would take it)
+    with env(SLIM_PREDICT_NATIVE_NPAD="0"):
+        par = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, parallel=True,
+                           device=dev)
+        packed_launches = _since(counts0)
+        seq = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, device=dev)
     cols = len(par["results"]) * trn.ncols
     seq_s = sum(r["time"] for r in seq["results"])
     out = dict(points=len(par["results"]), cols=cols,
@@ -1425,7 +1472,8 @@ def run_api(dev):
         ids = np.stack([got[0][u] for u in users])
         sc = np.stack([got[1][u] for u in users])
         fm, _ = learn(sm.mat, cfg, device=dev)
-        fids, fsc, fcnt = get_topn(fm, sm.mat, nrcmds=10, device=dev)
+        fids, fsc, fcnt = get_topn(fm, sm.mat, nrcmds=10, sparse=False,
+                                   device=dev)
         flab = np.where(fids >= 0, sm.id2item[np.maximum(fids, 0)], -1)
         agree = ranked_mismatches(ids, sc, flab, fsc, fcnt)
         mfile, mapfile = (os.path.join(tmp, f) for f in ("m.csr", "m.map"))
@@ -1438,7 +1486,9 @@ def run_api(dev):
             and np.array_equal(loaded.id2item, model.id2item)
         rel = float(np.abs(b.values() / a.values() - 1.0).max()) \
             if same else float("inf")
-        again = loaded.predict(sm, nrcmds=10, returnscores=True, device=dev)
+        with env(SLIM_PREDICT_NATIVE_NPAD="0"):   # the card's dense route
+            again = loaded.predict(sm, nrcmds=10, returnscores=True,
+                                   device=dev)
         reload_agree = ranked_mismatches(
             np.stack([again[0][u] for u in users]),
             np.stack([again[1][u] for u in users]), ids, sc)
@@ -1467,7 +1517,263 @@ def run_api(dev):
     return out
 
 
-# a rank's models between the calls of one world (phase 13), by name
+# phase 14, the native host runtime: the ML-1M-shaped native CD runs when
+# the synth set's time, scaled by columns x ratings, predicts it within
+# NATIVE_ML1M_BUDGET_S; phase 4's model is cut into NATIVE_FRAGMENTS
+# shuffled COO fragments for the assembly; the predict comparison on
+# phase 4's SLIM model takes its first NATIVE_HEAD users (each user's work
+# on the host is ~30x the FSLIM model's there).  The route's crossover:
+# the ML-1M shape's model cut to its first NATIVE_SUB_ITEMS items (the most
+# popular), with every user and with the first NATIVE_FEW, and the first
+# NATIVE_FEW users of the ML-1M shape and of the FSLIM model.  Wherever one
+# of the two routes is more than ROUTE_MARGIN x faster than the other, the
+# unpinned call must take it.
+NATIVE_ML1M_BUDGET_S = 60.0
+NATIVE_FRAGMENTS = 27
+NATIVE_HEAD = 16384
+NATIVE_SUB_ITEMS = (383, 767, 1535)       # npad 384, 768, 1536
+NATIVE_FEW = 600
+ROUTE_MARGIN = 1.25
+NATIVE_ROUNDS = 7
+
+
+def _in_turns(fns, under_s=0.5, rounds=NATIVE_ROUNDS):
+    """The results of ``fns`` and each one's times: every fn timed once,
+    in turn, and when that round took under ``under_s``, ``rounds`` - 1
+    more rounds in the same turns.  A call of a few milliseconds varies by ~2x
+    on the card's shared host, also between the best of three runs in a
+    row, so the routes compared take turns and each keeps its least."""
+    res, first = zip(*(_timed(f) for f in fns))
+    secs = [[t] for t in first]
+    if sum(first) < under_s:
+        for _ in range(rounds - 1):
+            for f, t in zip(fns, secs):
+                t.append(_timed(f)[1])
+    return res, secs
+
+
+def _sub_catalogue(model, hist, k):
+    """``model`` and ``hist`` cut to their first ``k`` items."""
+    from slim_tpu_torch.types import CSR
+
+    return (CSR.from_scipy(model.to_scipy()[:k, :k]),
+            CSR.from_scipy(hist.to_scipy()[:, :k]))
+
+
+def _native_vs_card(tag, model, hist, dev):
+    """Phase 14's predict comparison on one model: the native route and the
+    card's dense route on the same users, each timed, the card's both as
+    an unpinned call pays it (the model densified in the call) and with
+    the model resident (as a server holds it); the same counts, scores
+    within 1e-5 rel, ids equal up to the order within runs of equal
+    scores (``checks.tie_order_mismatches``); then the route an unpinned
+    call takes, its time, and whether it is the faster one (``route_ok``:
+    always, when neither is ROUTE_MARGIN x faster).  The four calls take
+    turns (``_in_turns``), each timed as its least."""
+    from slim_tpu_torch import native
+    from slim_tpu_torch import predict as P
+    from slim_tpu_torch.checks import tie_order_mismatches
+
+    W, dens_s = _timed(lambda: P.densify_model(model, device=dev))
+    P.predict_topn(model, _head_rows(hist, 256), nrcmds=10, W_dev=W,
+                   device=dev)                                   # warm
+    routes = set()
+
+    def unpinned():
+        P.predict_topn(model, hist, nrcmds=10, device=dev)
+        routes.add(P.last_route)
+
+    (nat, card, _, _), secs = _in_turns([
+        lambda: native.predict_topn(model, hist, nrcmds=10),
+        lambda: P.predict_topn(model, hist, nrcmds=10, W_dev=W, device=dev),
+        lambda: P.predict_topn(model, hist, nrcmds=10, sparse=False,
+                               device=dev),
+        unpinned])
+    del W
+    nat_s, card_s, call_s, unpinned_s = map(min, secs)
+    check(len(routes) == 1, f"{tag}: unpinned calls took {routes}")
+    route = routes.pop()
+    differ, bad = tie_order_mismatches(nat[0], *card)
+    n = max(model.nrows, model.ncols, hist.ncols)
+    faster = "native" if nat_s < call_s else "dense"
+    out = dict(users=hist.nrows, items=n, model_nnz=model.nnz,
+               hist_nnz=hist.nnz,
+               work_per_user=(hist.nnz / hist.nrows)
+               * (model.nnz / model.nrows),
+               score_updates=P.native_predict_work(model, hist),
+               native_s=nat_s, native_users_per_s=hist.nrows / nat_s,
+               card_call_s=call_s, card_call_users_per_s=hist.nrows / call_s,
+               card_dense_s=card_s, card_dense_users_per_s=hist.nrows / card_s,
+               card_model_densify_s=dens_s, unpinned_route=route,
+               unpinned_s=unpinned_s, faster=faster,
+               route_ok=route == faster
+               or max(nat_s, call_s) <= ROUTE_MARGIN * min(nat_s, call_s),
+               native_runs_s=secs[0], card_call_runs_s=secs[2],
+               ids_differ=differ, ids_differ_off_tie_runs=bad)
+    print(f"native predict {tag}:", json.dumps(out), flush=True)
+    check(np.array_equal(nat[2], card[2]), f"{tag}: counts differ")
+    check(np.allclose(nat[1], card[1], rtol=1e-5, atol=1e-6),
+          f"{tag}: scores differ")
+    check(bad == 0, f"{tag}: {bad} ids differ off runs of equal scores")
+    return out
+
+
+def _native_assembly(model):
+    """Phase 4's model as NATIVE_FRAGMENTS shuffled COO fragments,
+    assembled by ``_assemble`` (native) and by scipy over their
+    concatenation, as ``_assemble`` does without a compiler (in turns,
+    twice each): both equal to the model entry for entry."""
+    from slim_tpu_torch.solvers.cd import _assemble
+    from slim_tpu_torch.types import CSR
+
+    def scipy_assemble(coord, target, vals, n):
+        return CSR.from_ijv(np.concatenate(coord), np.concatenate(target),
+                            np.concatenate(vals), nrows=n, ncols=n,
+                            no_duplicates=True)
+
+    rows = np.repeat(np.arange(model.nrows, dtype=np.int32),
+                     np.diff(model.indptr))
+    cuts = np.array_split(np.random.default_rng(14).permutation(model.nnz),
+                          NATIVE_FRAGMENTS)
+    frags = ([rows[c] for c in cuts], [model.indices[c] for c in cuts],
+             [model.data[c] for c in cuts])
+    del rows
+    secs = {"native": [], "scipy": []}
+    for kind in ("native", "scipy", "scipy", "native"):
+        fn = _assemble if kind == "native" else scipy_assemble
+        got, t = _timed(lambda: fn(*frags, model.nrows))
+        secs[kind].append(t)
+        check(np.array_equal(got.indptr, model.indptr)
+              and np.array_equal(got.indices, model.indices)
+              and np.array_equal(got.data, model.data),
+              f"the {kind} assembly differs from the model")
+    return dict(entries=model.nnz, fragments=NATIVE_FRAGMENTS,
+                native_s=secs["native"], scipy_s=secs["scipy"])
+
+
+def run_native(dev, trn, build_s, phase4):
+    """Phase 14: the native host runtime on the card's host (see the
+    module docstring).  ``trn``: the ML-20M matrix; ``phase4``: phase 4's
+    record."""
+    import shutil
+    import tempfile
+
+    from slim_tpu_torch import native
+    from slim_tpu_torch.datagen import synth_implicit
+    from slim_tpu_torch.io import readers
+    from slim_tpu_torch.ops.gram import compute_gram
+    from slim_tpu_torch.solvers.cd import bucket_npad
+
+    out = dict(build_s=build_s, cpu_count=os.cpu_count(),
+               cpus_usable=len(os.sched_getaffinity(0)),
+               library=native.library_path().name)
+    print("native build:", json.dumps(out), flush=True)
+
+    # CD: the synth goldens, then the ML-1M shape when it fits the budget
+    syn = readers.read_matrix(os.path.join(HERE, "tests", "data",
+                                           "synth-train.ijv"),
+                              fmt="ijv").infer_ncols()
+    cd_kw = dict(l1r=1.0, l2r=1.0, optTol=1e-7, maxniters=10000)
+    (m, _, obj), t = _timed(lambda: native.cd_learn(syn, **cd_kw))
+    out["cd_synth"] = dict(s=t, objective=obj, model_nnz=m.nnz)
+    print("native cd synth:", json.dumps(out["cd_synth"]), flush=True)
+    _check_same_fit("native CD synth", dict(loss=obj, nnz=m.nnz),
+                    SYNTH_LOSS, SYNTH_NNZ)
+    m1 = synth_implicit(*ML1M_SHAPE, seed=0)
+    guess = t * (m1.ncols * m1.nnz) / (syn.ncols * syn.nnz)
+    if guess <= NATIVE_ML1M_BUDGET_S:
+        (m, _, obj), t = _timed(lambda: native.cd_learn(m1, **cd_kw))
+        out["cd_ml1m"] = dict(s=t, predicted_s=guess, objective=obj,
+                              model_nnz=m.nnz)
+        print("native cd ml1m:", json.dumps(out["cd_ml1m"]), flush=True)
+        _check_same_fit("native CD ML-1M", dict(loss=obj, nnz=m.nnz),
+                        ML1M_OBJ, ML1M_NNZ)
+    else:
+        out["cd_ml1m"] = dict(left_out=True, predicted_s=guess)
+        print(f"native cd ml1m: left out, the synth set's time scaled by "
+              f"columns x ratings predicts {guess:.1f} s, over the "
+              f"{NATIVE_ML1M_BUDGET_S} s budget", flush=True)
+
+    # the assembly of phase 4's model, native and scipy
+    out["assembly"] = _native_assembly(_KEPT["ml20m"])
+    out["assembly"]["phase4_assembly_s"] = phase4["phases"].get("assembly")
+    print("native assembly:", json.dumps(out["assembly"]), flush=True)
+
+    # the predict routes, native against the card's dense one, on the
+    # four models and at the crossover's shapes
+    cases = {"synth": (_KEPT["synth"], syn),
+             "ml1m": (_KEPT["ml1m"], m1),
+             "fslim_ml20m": (_KEPT["fslim"], trn),
+             "slim_ml20m_head": (_KEPT["ml20m"], _head_rows(trn, NATIVE_HEAD)),
+             f"ml1m_first{NATIVE_FEW}": (_KEPT["ml1m"],
+                                         _head_rows(m1, NATIVE_FEW)),
+             f"fslim_ml20m_first{NATIVE_FEW}": (_KEPT["fslim"],
+                                                _head_rows(trn, NATIVE_FEW))}
+    for k in NATIVE_SUB_ITEMS:
+        sm, sh = _sub_catalogue(_KEPT["ml1m"], m1, k)
+        cases[f"ml1m_items{k}"] = (sm, sh)
+        cases[f"ml1m_items{k}_first{NATIVE_FEW}"] = (
+            sm, _head_rows(sh, NATIVE_FEW))
+    out["predict"] = {tag: _native_vs_card(tag, *mh, dev)
+                      for tag, mh in cases.items()}
+    wrong = {k: (v["unpinned_route"], v["faster"])
+             for k, v in out["predict"].items() if not v["route_ok"]}
+
+    # the Gram at the ML-1M shape: host kernel against the card's
+    npad = bucket_npad(m1.ncols)
+    gh, gh_s = _timed(lambda: native.gram_dense(m1, pad_to=npad))
+    gc, gc_s = _timed(lambda: compute_gram(m1, "device", pad_to=npad,
+                                           device=dev))
+    same = bool(np.array_equal(gc.cpu().numpy(), gh))
+    del gc, gh
+    out["gram"] = dict(npad=npad, native_s=gh_s, card_s=gc_s, equal=same)
+    print("native gram:", json.dumps(out["gram"]), flush=True)
+    check(same, "the native Gram differs from the card's")
+
+    # the tokenisers on the ML-1M shape written as a csr file
+    tmp = tempfile.mkdtemp(prefix="slim_native_")
+    try:
+        path = os.path.join(tmp, "ml1m.csr")
+        readers.write_matrix(m1, path, fmt="csr")
+        with open(path, "rb") as fh:
+            raw = fh.read()
+        (nt, nl), nat_s = _timed(lambda: native.parse_tokens(raw))
+        (pt, pl), np_s = _timed(lambda: readers._tokenise_numpy(raw))
+        back = readers.read_matrix(path, fmt="csr")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["tokeniser"] = dict(bytes=len(raw), tokens=int(nt.size),
+                            native_s=nat_s, numpy_s=np_s)
+    print("native tokeniser:", json.dumps(out["tokeniser"]), flush=True)
+    check(np.array_equal(nt, pt) and np.array_equal(nl, pl),
+          "the tokenisers differ")
+    check(np.array_equal(back.indptr, m1.indptr)
+          and np.array_equal(back.indices, m1.indices),
+          "the csr file reads back another matrix")
+
+    # bench_torch.py at its small workload, in a process of its own
+    torch.cuda.empty_cache()
+    proc, bench_s = _timed(lambda: subprocess.run(
+        [sys.executable, os.path.join(HERE, "bench_torch.py")], cwd=HERE,
+        env=dict(os.environ, SLIM_BENCH_SMALL="1"), capture_output=True,
+        text=True, timeout=600))
+    check(proc.returncode == 0,
+          f"bench_torch.py failed:\n{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["bench_torch_small"] = dict(line, process_s=bench_s)
+    print("native bench_torch:", json.dumps(out["bench_torch_small"]),
+          flush=True)
+    check(abs(line["objective"] - line["cpu_objective"])
+          <= 1e-4 * abs(line["cpu_objective"]),
+          f"bench_torch objective {line['objective']} vs the native "
+          f"baseline's {line['cpu_objective']}")
+    check(not wrong, f"unpinned calls took the slower route by more than "
+          f"{ROUTE_MARGIN}x (route, faster): {wrong}")
+    return out
+
+
+# models kept by name: between phases (for phase 14), and a rank's
+# between the calls of one world (phase 13)
 _KEPT = {}
 
 
@@ -1499,8 +1805,9 @@ def dist_grid(trn, tst, cfg, mesh=None):
     GRID_L2, without the models."""
     from slim_tpu_torch.mselect import mselect_grid
 
-    res = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, parallel=True,
-                       mesh=mesh)
+    with env(SLIM_PREDICT_NATIVE_NPAD="0"):   # evaluation on the card
+        res = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, parallel=True,
+                           mesh=mesh)
     return dict(grid_s=res["grid_time"], best=(res["bestl1HR"],
                                                res["bestl2HR"]),
                 per_point=[{k: r[k] for k in ("l1r", "l2r", "loss", "nnz",
@@ -1514,7 +1821,7 @@ def dist_predict(hist, keep, mesh=None):
     from slim_tpu_torch.parallel.dist import sharded_predict
 
     got, secs = _timed(lambda: sharded_predict(_KEPT[keep], hist, mesh,
-                                               nrcmds=10))
+                                               nrcmds=10, sparse=False))
     return dict(users=hist.nrows, s=secs, users_per_s=hist.nrows / secs,
                 head=tuple(a[:DIST_HEAD] for a in got))
 
@@ -1526,7 +1833,7 @@ def dist_predict_ref(hist, keep, mesh=None):
     from slim_tpu_torch.predict import predict_topn
 
     return predict_topn(_KEPT[keep], _head_rows(hist, DIST_HEAD), nrcmds=10,
-                        device=mesh_device(mesh))
+                        sparse=False, device=mesh_device(mesh))
 
 
 def _ml1m_calls():
@@ -1691,10 +1998,12 @@ def kernel_checks(dev, profile=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "dist", "all"],
+    ap.add_argument("--only", choices=["kernels", "dist", "native", "all"],
                     default="all",
                     help="kernels: stop after the kernel checks; dist: the "
-                         "ML-20M learn and the distributed paths only")
+                         "ML-20M learn and the distributed paths only; "
+                         "native: the paths whose models phase 14 serves "
+                         "(synth, ML-1M, ML-20M, ML-20M FSLIM) and phase 14")
     ap.add_argument("--profile", metavar="DIR",
                     help="run one sweep and the ML-20M phase under "
                          "torch.profiler and write their per-kernel device "
@@ -1704,6 +2013,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import slim_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from slim_tpu_torch import native
     from slim_tpu_torch.datagen import synth_ml20m
     from slim_tpu_torch.ops import _build
     from slim_tpu_torch.ops.gram import pin_f32
@@ -1724,9 +2034,15 @@ def main(argv=None):
     print("card:", card, flush=True)
     _build.build()
     _build.lib()
+    # the host runtime: a missing C++ compiler fails here, as a failed build
+    check(native.compiler() is not None, "no C++ compiler for the native "
+          "host runtime")
+    native_build_s = _timed(native.lib)[1]
+    print(f"native library built in {native_build_s:.2f}s", flush=True)
     lap("build")
 
-    checks = [] if args.only == "dist" else kernel_checks(dev, args.profile)
+    checks = [] if args.only in ("dist", "native") \
+        else kernel_checks(dev, args.profile)
     lap("kernels")
     if args.only == "kernels":
         return 0
@@ -1750,9 +2066,14 @@ def main(argv=None):
                   dev, trn, results["mselect"][0])),
               ("api", lambda: run_api(dev)),
               ("checkpoint", lambda: run_checkpoint(dev, trn,
-                                                    results["ml20m"])))
+                                                    results["ml20m"])),
+              ("native", lambda: run_native(dev, trn, native_build_s,
+                                            results["ml20m"])))
     if args.only == "dist":
         drives = tuple(d for d in drives if d[0] == "ml20m")
+    elif args.only == "native":
+        drives = tuple(d for d in drives if d[0] in (
+            "synth", "ml1m", "ml20m", "fslim", "native"))
     by_path = {}
 
     def path_launched(path, counts):
@@ -1770,6 +2091,8 @@ def main(argv=None):
         results[path] = drive()
         path_launched(path, {k: w.launches for k, w in wrappers.items()})
         lap(path)
+    if args.only == "native":
+        return 0
     for path, (rec, counts) in run_dist(trn, results["ml20m"]).items():
         results[path] = rec
         path_launched(path, counts)

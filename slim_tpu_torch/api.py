@@ -18,7 +18,8 @@ import numpy as np
 from .config import SlimConfig, SLIM_DBG_TIME, dbg
 from .io.readers import read_binrow, read_csr, write_binrow, write_csr
 from .mselect import mselect_grid
-from .predict import (SPARSE_PREDICT_THRESHOLD, densify_model, predict_topn,
+from .predict import (SPARSE_PREDICT_THRESHOLD, densify_model,
+                      native_predict_applicable, predict_topn,
                       predict_topn_1vsk)
 from .solvers.admm import estimate_model_admm
 from .solvers.cd import bucket_npad, estimate_model_cd
@@ -206,9 +207,10 @@ class SLIMatrix:
 
 class SLIM:
     """A trained SLIM model with train / mselect / predict / save / load
-    (core.py:388-681).  Prediction always runs on the device routes
-    (``predict_topn`` / ``predict_topn_1vsk``): the port has no native
-    host predict to route small catalogues to."""
+    (core.py:388-681).  Prediction runs through ``predict_topn`` /
+    ``predict_topn_1vsk``; a top-N call with no resident device model that
+    ``native_predict_applicable`` accepts builds none and is served on the
+    host by the native route."""
 
     def __init__(self):
         self.model: Optional[CSR] = None
@@ -288,7 +290,11 @@ class SLIM:
             raise AssertionError(
                 "The shape of the input matrix should match the model.")
         n = max(self.model.nrows, self.model.ncols, data.mat.ncols)
-        W = self._device_model(n, device)
+        # as the JAX package's SLIM.predict: no dense device model for a
+        # call predict_topn would serve on the native host route
+        W = None if (self._W_dev is None and negitems is None
+                     and native_predict_applicable(n, self.model, data.mat)) \
+            else self._device_model(n, device)
         if negitems is not None:
             if nnegs < nrcmds:
                 raise AssertionError(

@@ -38,6 +38,38 @@ def ranked_mismatches(ids, sc, ids_ref, sc_ref, counts_ref=None, rtol=1e-5):
     return int(mism.sum()), int((mism & ~near).sum())
 
 
+def tie_order_mismatches(ids, ids_ref, sc_ref, counts_ref=None, rtol=1e-5):
+    """(ids that differ from the reference's, those of them not forgiven)
+    for two ranked lists of the same users whose routes order equal
+    scores differently: the native host route keeps the first-touched id
+    first, the device routes the lowest id.
+
+    The reference's slots split into runs of scores equal within ``rtol``
+    rel (neighbour to neighbour).  A differing id is forgiven where both
+    lists hold the same ids in every run, in any order within it; the run
+    that ends a full list (``counts_ref``, default the full width) may
+    hold other ids, since an item past the list may tie it.  The scores
+    themselves are compared by the caller."""
+    ids = np.asarray(ids)
+    ids_ref, sc_ref = np.asarray(ids_ref), np.asarray(sc_ref)
+    mism = ids != ids_ref
+    nu, k = sc_ref.shape
+    if k == 0:
+        return 0, 0
+    brk = ~np.isclose(sc_ref[:, 1:], sc_ref[:, :-1], rtol=rtol, atol=0)
+    run = np.concatenate([np.zeros((nu, 1), np.int64),
+                          np.cumsum(brk, axis=1)], axis=1)
+    cnt = np.full(nu, k) if counts_ref is None else np.asarray(counts_ref)
+    last = run[np.arange(nu), np.maximum(cnt, 1) - 1]
+    open_end = (cnt == k)[:, None] & (run == last[:, None])
+    span = int(max(ids.max(initial=0), ids_ref.max(initial=0))) + 2
+    key = run * span + ids + 1
+    key_ref = run * span + ids_ref + 1
+    key[open_end] = key_ref[open_end] = -1
+    ok = (np.sort(key, axis=1) == np.sort(key_ref, axis=1)).all(axis=1)
+    return int(mism.sum()), int(mism[~ok].sum())
+
+
 def topn_oracle_mismatches(model, hist, got, rtol=1e-5):
     """Users whose top-N ``got`` (ids, scores, counts) differs from a scipy
     oracle of a square model (CSR, rows = rated item) and histories: the

@@ -17,7 +17,9 @@ Format parity (reference ``cmdline_learn.c:38-43`` maps the CLI names):
               int64 indptr, int32 indices, float32 data.
 
 Byte-compatible with the JAX package's slim_tpu.io (same parsers and
-writers; the text tokeniser is numpy-only here).
+writers).  Text files are tokenised by the native runtime's ``strtod``
+tokeniser when a C++ compiler is found, as in the JAX package, else by
+numpy; the two differ only on malformed text (:func:`_tokenise_file`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import struct
 
 import numpy as np
 
+from .. import native
 from ..types import CSR
 
 FORMATS = ("csr", "csrnv", "cluto", "ijv", "binrow")
@@ -72,9 +75,19 @@ def write_matrix(mat: CSR, path: str, fmt: str = "csr", writevals: bool = True,
 # text csr
 # --------------------------------------------------------------------- #
 def _tokenise_file(path):
-    """Return (all tokens f64, tokens-per-line i64)."""
+    """Return (all tokens f64, tokens-per-line i64): the native tokeniser
+    when available (``native.parse_tokens``: a lone ``\\r`` does not end
+    a line there, and a character no number starts with is skipped where
+    numpy raises), numpy otherwise."""
     with open(path, "rb") as fh:
         raw = fh.read()
+    if native.available():
+        return native.parse_tokens(raw)
+    return _tokenise_numpy(raw)
+
+
+def _tokenise_numpy(raw: bytes):
+    """(all tokens f64, tokens-per-line i64) of ``raw`` by splitting."""
     lines = raw.splitlines()
     all_tok = np.array((b" ".join(lines)).split(), dtype=np.float64) \
         if lines else np.zeros(0)

@@ -520,11 +520,13 @@ def sharded_predict(model: CSR, hist: CSR, mesh, nrcmds: int = 10,
     """Top-N with the users sharded over the ranks (padded to a multiple
     of the world size) and the model replicated: each rank serves its
     shard through :func:`~slim_tpu_torch.predict.predict_topn` on its own
-    device, whose route (``sparse`` as there) the single-device predict
-    shares, with ties at the lowest id, and the results are all-gathered.
-    Returns (ids, scores, counts) as ``predict_topn``, the same on every
-    rank."""
-    from ..predict import predict_topn
+    device, on the device route the single-device predict picks
+    (``sparse`` as there; unset, sparse above SPARSE_PREDICT_THRESHOLD),
+    pinned so that no rank takes the native host route, as in the JAX
+    package, with ties at the lowest id, and the results are
+    all-gathered.  Returns (ids, scores, counts) as ``predict_topn``, the
+    same on every rank."""
+    from ..predict import SPARSE_PREDICT_THRESHOLD, predict_topn
 
     dev, ndev, rank, _, _ = _where(mesh)
     nusers = hist.nrows
@@ -534,6 +536,9 @@ def sharded_predict(model: CSR, hist: CSR, mesh, nrcmds: int = 10,
     mine = CSR.from_arrays(u1 - u0, hist.ncols, hist.indptr[u0:u1 + 1] - s,
                            hist.indices[s:e],
                            None if hist.data is None else hist.data[s:e])
+    if sparse is None:
+        sparse = bucket_npad(max(model.nrows, model.ncols, hist.ncols)) \
+            > SPARSE_PREDICT_THRESHOLD
     ids, sc, cnt = predict_topn(model, mine, nrcmds, sparse=sparse,
                                 device=dev)
     # one gather: ids, score bits and the count of each user as int32

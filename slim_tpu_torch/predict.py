@@ -2,10 +2,15 @@
 
 score(k) = Σ_{i in history} rating_i · W[i, k] (predict.c:40-58); history
 items are excluded and only items with score > 0 are candidates, so a user
-can get fewer than N recommendations (predict.c:62).  Top-N lists order
-equal scores by the lowest id (:func:`topk_lowest_id`, the order
-``lax.top_k`` gives).  Each call scores on one of three routes:
+can get fewer than N recommendations (predict.c:62).  The device routes
+order equal scores by the lowest id (:func:`topk_lowest_id`, the order
+``lax.top_k`` gives).  Each call scores on one of four routes, and
+:data:`last_route` names the one that served the latest call:
 
+* **native** (small calls, unpinned only): the native runtime's per-user
+  sparse loop on the host (:func:`native_predict_applicable`: the JAX
+  package's rule and a cap from the card's costs).  Equal scores keep
+  the first-touched id first there.
 * **dense** (npad <= SPARSE_PREDICT_THRESHOLD): the model is densified on
   the device through the densify kernel (model rows as runs), each user
   block's histories likewise; the scores are one float32 ``torch.matmul``
@@ -32,11 +37,13 @@ ignored.
 
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
 import torch
 
+from . import native
 from .ops.densify import densify_runs
 from .ops.gram import pin_f32
 from .solvers.cd import bucket_npad
@@ -52,6 +59,75 @@ STEP_BYTES = 1 << 30          # device bytes of one sparse scoring step
 PAIR_BYTES = 64               # bytes one pair takes through a step: ids,
                               # keys, weights and the COO sort's buffers
 HISTORY_MARK = -1e30          # a COO history pair: its run's sum goes < 0
+
+# The small-catalogue route, the JAX package's thresholds kept for parity
+# (predict.py there): unpinned calls up to this npad score on the host
+# (SLIM_PREDICT_NATIVE_NPAD overrides, 0 turns the route off) ...
+NATIVE_PREDICT_NPAD = 4096
+# ... and above it while the per-user work of the host loop, mean history
+# nnz x mean model-row nnz, is below this share of npad, the per-user
+# work of every device route (SLIM_PREDICT_NATIVE_ALPHA overrides, 0
+# keeps the npad rule alone) ...
+NATIVE_PREDICT_ALPHA = 0.75
+# ... and, the port's own cap, only while the native loop's score updates
+# (native_predict_work) take no longer than the card's dense route would
+# take for the call: a fixed cost, the model's densify (per npad^2 cell)
+# and the f32 scoring (per user and npad^2 cell).  Fit on one H100 and its
+# 8-core host by chip_smoke phase 14, where the card serves more users per
+# second at every catalogue measured: the host wins only a call small
+# enough for the card's costs per call to outweigh the whole host loop.
+HOST_S_PER_UPDATE = 5e-10
+CARD_S_PER_CALL = 1.25e-3
+CARD_S_PER_CELL = 5e-11
+CARD_S_PER_SCORE = 4e-14
+
+logger = logging.getLogger("slim_tpu_torch")
+
+# the route that served the latest predict_topn call: "native", "dense",
+# "rows" (sparse score rows) or "coo"
+last_route = None
+
+
+def native_predict_work(model: CSR, hist: CSR, sample: int = 1 << 16) -> int:
+    """The score updates the native loop makes for the users of ``hist``
+    on ``model``: the model-row nnz of every history entry, summed; over
+    more than 2 x ``sample`` entries, counted on every k-th entry and
+    scaled (a route decision needs no more, at a fraction of the time)."""
+    rows = np.concatenate([model.row_nnz(), [0]])    # ids >= n count none
+    idx = hist.indices
+    sub = idx[::max(1, idx.size // sample)]
+    got = int(np.take(rows, sub, mode="clip").sum())
+    return round(got * idx.size / max(sub.size, 1))
+
+
+def native_predict_applicable(n: int, model: CSR | None = None,
+                              hist: CSR | None = None) -> bool:
+    """True when :func:`predict_topn` routes an unpinned call for an
+    ``n``-item catalogue to the native host loop: the JAX package's rule
+    (npad at most SLIM_PREDICT_NATIVE_NPAD, default NATIVE_PREDICT_NPAD,
+    or, with ``model`` and ``hist`` given, mean(history nnz) x mean(model
+    row nnz) below SLIM_PREDICT_NATIVE_ALPHA, default
+    NATIVE_PREDICT_ALPHA, x npad) and, with ``model`` and ``hist`` given,
+    the host loop's estimated time at most the card's (see
+    HOST_S_PER_UPDATE).  Read at call time; never when no C++ compiler is
+    found."""
+    thr = int(os.environ.get("SLIM_PREDICT_NATIVE_NPAD",
+                             NATIVE_PREDICT_NPAD))
+    if thr <= 0 or not native.available():
+        return False
+    npad = bucket_npad(n)
+    if model is None or hist is None:
+        return npad <= thr
+    if npad > thr:
+        alpha = float(os.environ.get("SLIM_PREDICT_NATIVE_ALPHA",
+                                     NATIVE_PREDICT_ALPHA))
+        hbar = hist.nnz / max(hist.nrows, 1)
+        rbar = model.nnz / max(model.nrows, 1)
+        if not (alpha > 0 and hbar * rbar < alpha * npad):
+            return False
+    card_s = CARD_S_PER_CALL + npad * npad * (
+        CARD_S_PER_CELL + hist.nrows * CARD_S_PER_SCORE)
+    return native_predict_work(model, hist) * HOST_S_PER_UPDATE <= card_s
 
 
 def coo_npad() -> int:
@@ -451,8 +527,21 @@ def predict_topn(model: CSR, hist: CSR, nrcmds: int = 10,
     model from :func:`densify_model` to reuse across calls, a
     :class:`DeviceModelPack`, or a :func:`sparsify_model_device` pair
     (which routes sparse).  ``sparse`` pins the route (default: sparse
-    above SPARSE_PREDICT_THRESHOLD); ``scan`` is accepted and ignored."""
+    above SPARSE_PREDICT_THRESHOLD); ``scan`` is accepted and ignored.
+    A call that pins nothing (no ``W_dev``, ``sparse`` or ``scan``) and that
+    :func:`native_predict_applicable` accepts scores on the host by the
+    native loop, whatever ``device`` is."""
+    global last_route
+    n = max(model.nrows, model.ncols, hist.ncols)
+    if W_dev is None and sparse is None and scan is None \
+            and native_predict_applicable(n, model, hist):
+        logger.info("predict_topn: %d users of a %d-item catalogue on the "
+                    "native host route", hist.nrows, n)
+        last_route = "native"
+        return native.predict_topn(model, hist, nrcmds=nrcmds)
     r = _Route(model, hist, W_dev, sparse, device)
+    last_route = "coo" if r.coo else ("dense" if r.W is not None
+                                      else "rows")
     nusers = hist.nrows
     ids = np.full((nusers, nrcmds), -1, np.int32)
     scores = np.zeros((nusers, nrcmds), np.float32)

@@ -9,7 +9,8 @@ each block in its union-active-set space (compact path), snapped to full
 width when the union covers more than :func:`compact_frac` of it; FSLIM
 takes the union of the columns' neighbour sets instead of the screen's.  Each
 solved block is harvested by count_over -> offsets -> the pack kernel ->
-host, and the model is assembled with scipy (estimate.c:570-593), keeping
+host, and the model is assembled by the native runtime's counting sort
+(scipy where no C++ compiler is found; estimate.c:570-593), keeping
 entries > 1e-7 (estimate.c:492-505).
 
 Warm starts (estimate.c:453-471) densify each block's x0 on the device
@@ -38,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from ..config import (SlimConfig, SLIM_DBG_INFO, SLIM_DBG_PROGRESS,
                       SLIM_DBG_TIME, dbg)
 from ..ops.cd_kernel import (block_union_flags, block_union_mask,
@@ -476,7 +478,13 @@ def _cat(parts, dt) -> np.ndarray:
 
 def _assemble(coord, target, vals, n: int) -> CSR:
     """The (n, n) model from lists of (rated item, target item, value)
-    arrays, each pair once."""
+    arrays, each pair once: the native threaded counting sort straight
+    from the fragments when a C++ compiler is found (as in the JAX
+    package's CD learn), else scipy over their concatenation.  Both give
+    the same CSR entry for entry."""
+    if native.available():
+        return CSR.from_arrays(n, n, *native.csr_from_blocks(coord, target,
+                                                              vals, n))
     return CSR.from_ijv(_cat(coord, np.int32), _cat(target, np.int32),
                         _cat(vals, np.float32), nrows=n, ncols=n,
                         no_duplicates=True)

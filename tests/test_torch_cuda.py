@@ -553,3 +553,50 @@ def test_one_rank_nccl_world_without_torchrun(dev):
                                       G.gram_host(m, 256))
     finally:
         dist.destroy_process_group()
+
+
+def test_native_route_matches_card_dense(dev, rng, monkeypatch):
+    """The native host route against the card's dense route on the same
+    users: the same counts, scores within 1e-5 rel, ids equal up to the
+    order within exact ties; an unpinned call takes the native route."""
+    from slim_tpu_torch import native
+    from slim_tpu_torch import predict as PR
+    from slim_tpu_torch.checks import tie_order_mismatches
+
+    model = _skewed_model(rng, 3000, 30, 7, 2500)
+    hist = random_csr(rng, 2000, 3000, density=0.02)
+    hist = CSR.from_arrays(hist.nrows, hist.ncols, hist.indptr, hist.indices,
+                           hist.data)
+    card = predict_topn(model, hist, nrcmds=10, sparse=False, device=dev)
+    assert PR.last_route == "dense"
+    monkeypatch.setenv("SLIM_PREDICT_NATIVE_NPAD", "4096")
+    got = predict_topn(model, hist, nrcmds=10, device=dev)
+    assert PR.last_route == "native"
+    np.testing.assert_array_equal(got[2], card[2])
+    np.testing.assert_allclose(got[1], card[1], rtol=1e-5, atol=1e-6)
+    assert tie_order_mismatches(got[0], *card)[1] == 0
+    for a, b in zip(got, native.predict_topn(model, hist, nrcmds=10)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_ml20m_shaped_assembly_native_equals_scipy(dev, monkeypatch):
+    """A quarter-scale ML-20M-shaped learn on the card (wide blocks): the
+    native assembly and scipy's give the same model entry for entry."""
+    from slim_tpu_torch import SlimConfig, learn, native
+    from slim_tpu_torch.datagen import synth_ml20m
+
+    trn = synth_ml20m(seed=0, scale=0.25)
+    cfg = SlimConfig(l1r=1.0, l2r=1.0, block_size=1024)
+    calls = []
+    orig = native.csr_from_blocks
+    monkeypatch.setattr(native, "csr_from_blocks",
+                        lambda *a: calls.append(1) or orig(*a))
+    m1, _ = learn(trn, cfg, device=dev)
+    assert calls
+    monkeypatch.setattr(native, "available", lambda: False)   # scipy's
+    m0, _ = learn(trn, cfg, device=dev)
+    assert len(calls) == 1
+    assert m1.nnz == m0.nnz > 0
+    np.testing.assert_array_equal(m1.indptr, m0.indptr)
+    np.testing.assert_array_equal(m1.indices, m0.indices)
+    np.testing.assert_array_equal(m1.data, m0.data)

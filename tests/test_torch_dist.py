@@ -116,6 +116,13 @@ def _predict_cases():
                     {"SLIM_PREDICT_COO_NPAD": "1"})}
 
 
+def _last_predict_route(mesh=None):
+    """A world's call: the route of the rank's latest predict_topn."""
+    from slim_tpu_torch import predict
+
+    return predict.last_route
+
+
 @pytest.fixture(scope="module")
 def world2():
     """Every mode in one 2-rank gloo world: {key: [rank 0's, rank 1's]}."""
@@ -129,6 +136,14 @@ def world2():
         calls.append(L.Call(f"predict_{k}", D.sharded_predict,
                             (_port(model), _port(hist)),
                             dict(nrcmds=k_, sparse=k == "coo"), env=env))
+    # unpinned, with the native route on as outside the suite
+    model, hist, k_, _ = _predict_cases()["dense"]
+    on = {"SLIM_PREDICT_NATIVE_NPAD": "4096"}
+    calls.append(L.Call("predict_unpinned", D.sharded_predict,
+                        (_port(model), _port(hist)), dict(nrcmds=k_),
+                        env=on))
+    calls.append(L.Call("predict_unpinned_route", _last_predict_route,
+                        env=on))
     trn, tst = read_matrix(TRN_CSR), read_matrix(TST_CSR)
     calls.append(L.Call("mselect", mselect_pairs, (trn, tst, SlimConfig(),
                                                     PAIRS)))
@@ -233,6 +248,17 @@ def test_sharded_predict_matches_single_device(world2, monkeypatch, route):
     assert np.array_equal(cnt, rc)
     np.testing.assert_allclose(sc, rs, rtol=1e-5, atol=1e-6)
     assert ranked_mismatches(ids, sc, ri, rs, rc)[1] == 0
+
+
+def test_sharded_predict_stays_on_the_device_routes(world2):
+    """With the native route on and no route given, every rank scores its
+    shard on the dense device route (as the JAX package's sharded predict
+    scores on the mesh devices), with the pinned call's results."""
+    assert [r["result"] for r in world2["predict_unpinned_route"]] == \
+        ["dense", "dense"]
+    for a, b in zip(world2["predict_unpinned"][0]["result"],
+                    world2["predict_dense"][0]["result"]):
+        assert np.array_equal(a, b)
 
 
 def test_sharded_predict_matches_jax(world2):
