@@ -96,14 +96,23 @@ Phases (any failure exits non-zero, and no result line is printed):
      solve; a full restore launches no sweep and no pack; the directory
      removed.
   12. the SLIM / SLIMatrix classes at the ML-1M shape from (user, item,
-     rating) triplets: train -> predict -> save_model / load_model ->
-     predict, against api.learn + get_topn; a learn with profile_dir
-     writes a trace that names the sweep kernel.
+     rating) triplets: train -> predict (no device given) -> save_model /
+     load_model -> predict, against api.learn + get_topn, the matrix's ids
+     uploaded to the card once; a learn with profile_dir writes a trace
+     that names the sweep kernel.
+  guide. the walkthrough docs/userguide_torch.py (every public entry
+     point, sections 1-9) on cuda:0 at its guide shape (docs/userguide.py's
+     120 x 60 data; every fit, HR / ARHR and mselect point against the JAX
+     package's, GUIDE_*) and at the ML-1M shape (the class model against
+     the functional learn, the distributed learns against phase 3b); each
+     section's wall time and launches printed (run_guide).
   13. the distributed learns (slim_tpu_torch.parallel), in spawned worlds
      of one process per rank (parallel.launch.run_world), each rank
      counting its own launches.  A NCCL world of torch.cuda.device_count()
      ranks: dist_ml1m, the replicated, blockwise and sharded-G learns and
-     mselect_grid(parallel=True, mesh=) at the ML-1M shape; dist_ml20m, the
+     mselect_grid(parallel=True, mesh=) at the ML-1M shape (no route
+     pinned: rank 0 scores every point on a device route, the other ranks
+     none); dist_ml20m, the
      replicated and sharded-G learns and the sharded predict (every user)
      at ML-20M, each learn within DIST_OBJ_RTOL of phase 4's objective and
      DIST_NNZ_RTOL of its nnz and within the ML-20M gates, the first 4,096
@@ -141,10 +150,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      route (``sparse=``, ``W_dev`` or SLIM_PREDICT_NATIVE_NPAD=0 around a
      call that takes neither), so it measures the route it measured before
      the native route was added; phase 4's top-N is unpinned and must stay
-     on the card.
-  15. the kernels line.  Phases 3-14 (3b, 3c and 10b too) are each driven
-     with every launch counter set to 0 just before and read just after
-     (in the ranks, summed over them, for phase 13's paths); each path
+     on the card, the guide's unpinned calls take the route the router
+     picks, and the mesh grid of phase 13 pins its own device route.
+  15. the kernels line.  Phases 3-14 (3b, 3c, 10b and guide too) are each
+     driven with every launch counter set to 0 just before and read just
+     after (in the ranks, summed over them, for phase 13's paths; the
+     guide's section-9 ranks are printed apart); each path
      must launch its own kernels (PATH_KERNELS) and no other (phase 8: no
      kernel at all).  A kernel's
      ``launches`` is the sum of its per-path counts (``launches_by_path``)
@@ -234,6 +245,26 @@ DIST_OBJ_RTOL, DIST_NNZ_RTOL, DIST_HEAD = 1e-6, 1e-4, 4096
 # oracle gives 147,401.170)
 DIST_2M_CFG = dict(l1r=0.5, l2r=0.5, block_size=64, shuffle=False)
 AMAZON2M_OBJ = 147401.176
+# the walkthrough docs/userguide_torch.py at its guide shape (120 users x
+# 60 items from default_rng(0), docs/userguide.py's data): the JAX
+# package's results on JAX-CPU on the same matrices, which
+# tests/test_torch_userguide.py holds to slim_tpu.  (loss, nnz) of the
+# class train (section 2), FSLIM and ADMM (6), the functional learn (7)
+# and section 9's config (l1r = l2r = 1) on one device; HR / ARHR of the
+# functional learn; the mselect walk's (l1r, l2r, nnz, HR, ARHR) per point
+# (5); the best pairs (l1 HR, l2 HR, l1 ARHR, l2 ARHR) of the walk and of
+# the packed grid
+GUIDE_FITS = {"train": (4218.0137367248535, 1097),
+              "fslim": (4333.907215118408, 581),
+              "admm": (4480.16650390625, 1900),
+              "functional": (4218.0137367248535, 1097),
+              "dist": (4256.552139282227, 1091)}
+GUIDE_EVAL = (0.09916666666666665, 0.04651732566407575)
+GUIDE_MSELECT = [(0.1, 0.5, 1100, 0.06377551020408162, 0.04640074211502782),
+                 (0.1, 2.0, 1106, 0.06377551020408162, 0.04640074211502782),
+                 (1.0, 0.5, 1089, 0.06377551020408162, 0.04640074211502782),
+                 (1.0, 2.0, 1096, 0.06377551020408162, 0.04640074211502782)]
+GUIDE_BEST = (0.1, 0.5, 0.1, 0.5)
 # the kernels each driven path must launch, and no other: the synth set
 # (npad 384) and
 # the ML-1M shape (npad 4096) solve on the whole-array row-major sweep, and
@@ -259,6 +290,10 @@ PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
                 "grid_ml20m": ("densify", "cd_sweep_large", "pack"),
                 "checkpoint": ("densify", "cd_sweep_large", "pack"),
                 "api": ("densify", "cd_sweep", "pack"),
+                # the walkthrough: both shapes on the whole-array sweep
+                # (npad 64 and 4096), Grams, warm starts and the dense
+                # predict on densify, harvests on pack; ADMM's Gram too
+                "guide": ("densify", "cd_sweep", "pack"),
                 # the distributed paths: the ML-1M shape's blocks and
                 # superblock unions (at most 4,096 wide) on the whole-array
                 # sweep, ML-20M's (unions 24,576-28,672 wide) on v4, the
@@ -734,24 +769,52 @@ def _head_rows(mat, n):
                            None if mat.data is None else mat.data[:end])
 
 
-def check_agree(tag, got, ref, rtol=1e-5):
+def _pick_rows(mat, users):
+    """The rows ``users`` of a CSR, same columns."""
+    from slim_tpu_torch.types import CSR
+
+    sub = mat.to_scipy()[np.asarray(users)]
+    return CSR.from_arrays(len(users), mat.ncols, sub.indptr.astype(np.int64),
+                           sub.indices.astype(np.int32),
+                           None if mat.data is None else sub.data)
+
+
+def check_agree(tag, got, ref, rtol=1e-5, model=None, hist=None):
     """Two ranked results (ids, scores, counts) of two routes: the same
     counts, scores within ``rtol``, ids equal but at the near ties
-    ``checks.ranked_mismatches`` forgives.  The users with an id it does
-    not forgive are printed before the check fails."""
-    from slim_tpu_torch.checks import ranked_mismatches
+    ``checks.ranked_mismatches`` forgives.  With the top-N's ``model`` and
+    ``hist``, a user whose ids that rule does not forgive is held to the
+    scipy oracle (``checks.topn_oracle_mismatches``) on both lists: where
+    both are the oracle's top-N, the two routes split a near tie the
+    lists alone cannot show (two items within ``rtol`` at the list's end,
+    each route's last score printing the same float).  The users with an
+    id left unforgiven are printed before the check fails."""
+    from slim_tpu_torch.checks import ranked_mismatches, topn_oracle_mismatches
 
     check(np.array_equal(got[2], ref[2]), f"{tag}: counts differ")
     check(np.allclose(got[1], ref[1], rtol=rtol, atol=1e-6),
           f"{tag}: scores differ")
     differ, off_near = ranked_mismatches(*got[:2], *ref, rtol=rtol)
-    if off_near:
-        for u in np.nonzero((got[0] != ref[0]).any(axis=1))[0][:4]:
-            print(f"{tag}: user {u} ids {got[0][u].tolist()} vs "
-                  f"{ref[0][u].tolist()}, scores {got[1][u].tolist()} vs "
-                  f"{ref[1][u].tolist()}", flush=True)
+    off = {}                  # user -> its ids the rule does not forgive
+    for u in np.nonzero((got[0] != ref[0]).any(axis=1))[0]:
+        n = ranked_mismatches(*(a[u:u + 1] for a in got[:2]),
+                              *(a[u:u + 1] for a in ref), rtol=rtol)[1]
+        if n:
+            off[u] = n
+    oracle_near = []
+    if off and model is not None:
+        oracle_near = [u for u in off if not any(
+            topn_oracle_mismatches(model, _pick_rows(hist, [u]),
+                                   tuple(a[u:u + 1] for a in lists),
+                                   rtol=rtol) for lists in (got, ref))]
+        off_near -= sum(off[u] for u in oracle_near)
+    for u in [u for u in off if u not in oracle_near][:4]:
+        print(f"{tag}: user {u} ids {got[0][u].tolist()} vs "
+              f"{ref[0][u].tolist()}, scores {got[1][u].tolist()} vs "
+              f"{ref[1][u].tolist()}", flush=True)
     check(off_near == 0, f"{tag}: {off_near} ids differ off near ties")
-    return dict(ids_differ=differ, ids_differ_off_near_ties=off_near)
+    return dict(ids_differ=differ, ids_differ_off_near_ties=off_near,
+                near_ties_by_oracle=len(oracle_near))
 
 
 def run_ml1m(dev):
@@ -985,7 +1048,8 @@ def run_fslim(dev, trn, nhead=4096, ntime=16384):
                 got, t = _timed(lambda: predict_topn(model, head, nrcmds=10,
                                                      device=dev, **kw))
                 rec["topn"] = dict(s=t, users_per_s=nhead / t,
-                                   **check_agree(f"{route} top-N", got, ref))
+                                   **check_agree(f"{route} top-N", got, ref,
+                                                 model=model, hist=head))
             one, t = _timed(lambda: predict_topn_1vsk(
                 model, head, cand, nrcmds=10, device=dev, **kw))
             rec["1vsk"] = dict(s=t, users_per_s=nhead / t)
@@ -1068,7 +1132,8 @@ def run_serve(dev, noracle=1024):
         if route == "rows":
             rows = res
         else:
-            agree = check_agree("serve COO vs score rows", res, rows)
+            agree = check_agree("serve COO vs score rows", res, rows,
+                                model=model, hist=hist)
     bad = topn_oracle_mismatches(model, _head_rows(hist, noracle),
                                  tuple(a[:noracle] for a in rows))
     out = dict(nitems=model.ncols, nusers=hist.nrows, model_nnz=model.nnz,
@@ -1443,9 +1508,10 @@ def run_checkpoint(dev, trn, phase4):
 
 def run_api(dev):
     """Phase 12: the classes at the ML-1M shape: SLIMatrix from (user,
-    item, rating) triplets, SLIM.train -> predict -> save_model /
-    load_model -> predict, against api.learn + get_topn on the same matrix
-    (``checks.ranked_mismatches``); the loaded model equal to the saved
+    item, rating) triplets, SLIM.train -> predict (no device: the card)
+    -> save_model / load_model -> predict, against api.learn + get_topn
+    on the same matrix (``checks.ranked_mismatches``), the matrix's ids
+    uploaded once for all of them; the loaded model equal to the saved
     one (structure and labels exactly, values to the csr text's 6 digits,
     1e-5 rel); a learn with profile_dir writes a trace that names the
     sweep kernel."""
@@ -1465,9 +1531,11 @@ def run_api(dev):
     tmp = tempfile.mkdtemp(prefix="slim_api_")
     try:
         model = SLIM()
-        _, train_s = _timed(lambda: model.train(cfg, sm, device=dev))
+        # no device: the card, as a user calls them ("cuda", the pack's
+        # tensors "cuda:0"); the matrix's ids must go up once
+        _, train_s = _timed(lambda: model.train(cfg, sm))
         (got, pred_s) = _timed(lambda: model.predict(
-            sm, nrcmds=10, returnscores=True, device=dev))
+            sm, nrcmds=10, returnscores=True))
         users = list(sm.user2id)
         ids = np.stack([got[0][u] for u in users])
         sc = np.stack([got[1][u] for u in users])
@@ -1476,6 +1544,7 @@ def run_api(dev):
                                    device=dev)
         flab = np.where(fids >= 0, sm.id2item[np.maximum(fids, 0)], -1)
         agree = ranked_mismatches(ids, sc, flab, fsc, fcnt)
+        uploads = sorted(k[0] for k in sm.mat._dev if k[1] == "idx32")
         mfile, mapfile = (os.path.join(tmp, f) for f in ("m.csr", "m.map"))
         model.save_model(mfile, mapfile)
         loaded = SLIM()
@@ -1504,8 +1573,11 @@ def run_api(dev):
                reload_ids_differ_off_near_ties=reload_agree[1],
                loaded_structure_equal=bool(same),
                loaded_max_rel_diff=rel, trace_bytes=len(trace),
-               trace_names_sweep="group_kernel" in trace)
+               trace_names_sweep="group_kernel" in trace,
+               idx32_uploads=uploads)
     print("api:", json.dumps(out))
+    check(uploads == ["cuda:0"], f"the matrix's ids went up as {uploads}: "
+          "one card, one upload")
     check(agree[1] == 0, f"class predict differs from get_topn: {agree}")
     check(rel <= 1e-5, "the loaded model differs from the saved one "
           "beyond the csr text's 6 digits")
@@ -1514,6 +1586,134 @@ def run_api(dev):
     _check_same_fit("class ML-1M learn", dict(loss=out["objective"],
                                               nnz=out["model_nnz"]),
                     ML1M_OBJ, ML1M_NNZ)
+    return out
+
+
+DEVICE_ROUTES = ("dense", "rows", "coo")
+
+
+def _same_runs(tag, got, ref):
+    """Two ranked (ids, scores, counts) of the same users, summed in
+    another order (another route, or weights rounded by the csr text),
+    where an exact tie on one side can be an ulp apart on the other: the
+    same counts, scores within 1e-5 rel, and ids equal up to the order
+    within runs of scores equal within 1e-5
+    (``checks.tie_order_mismatches``)."""
+    from slim_tpu_torch.checks import tie_order_mismatches
+
+    check(np.array_equal(got[2], ref[2]), f"{tag}: counts differ")
+    check(np.allclose(got[1], ref[1], rtol=1e-5, atol=1e-6),
+          f"{tag}: scores differ")
+    off = tie_order_mismatches(got[0], ref[0], ref[1], ref[2])[1]
+    check(off == 0, f"{tag}: {off} ids differ")
+
+
+def _check_guide(shape, rec, ml1m):
+    """The walkthrough's gates at ``shape`` (see run_guide)."""
+    tag = f"guide {shape}"
+    for name, r in rec["ingestion"].items():
+        check(r is None or r["same"], f"{tag}: {name} ingestion differs")
+    p, sl = rec["predict"], rec["save_load"]
+    full = np.full(len(p["ids"]), p["ids"].shape[1])
+    _same_runs(f"{tag} save/load", (sl["ids"], sl["scores"], full),
+               (p["ids"], p["scores"], full))
+    ms = rec["mselect"]
+    check(ms["best"] == ms["grid_best"],
+          f"{tag}: walk best {ms['best']} vs packed grid {ms['grid_best']}")
+    f = rec["functional"]
+    for key in ("gram_device_loss", "checkpoint_loss", "resumed_loss"):
+        check(abs(rec["knobs"][key] - f["loss"]) <= 1e-4 * f["loss"],
+              f"{tag}: {key} {rec['knobs'][key]} vs {f['loss']}")
+    check("restore" in rec["knobs"]["resumed_phases"]
+          and rec["knobs"]["traces"] == 1, f"{tag}: knobs {rec['knobs']}")
+    sv = rec["serving"]
+    check_agree(f"{tag} serving pack", sv["pack"], sv["dense"])
+    for form in ("sparse_rows", "sparse", "native"):
+        if form in sv:
+            _same_runs(f"{tag} serving {form}", sv[form], sv["dense"])
+    check(sv["pack_route"] == sv["dense_route"] == "dense"
+          and sv["sparse_rows_route"] == sv["sparse_route"] == "rows",
+          f"{tag}: serving routes")
+    world = rec["distributed"]
+    routes = [r["mselect_route"] for r in world]
+    check(routes[0] in DEVICE_ROUTES and routes[1:] == [None],
+          f"{tag}: the mesh walk evaluated on routes {routes}")
+    for mode in ("replicated", "blockwise", "sharded_g"):
+        check(all(r[mode]["model"] == world[0][mode]["model"]
+                  for r in world), f"{tag}: {mode} ranks differ")
+    if shape == "guide":
+        for key, (loss, nnz) in GUIDE_FITS.items():
+            if key != "dist":
+                _check_same_fit(f"{tag} {key}", rec[key], loss, nnz)
+        for mode in ("replicated", "blockwise", "sharded_g"):
+            _check_same_fit(f"{tag} {mode}", world[0][mode],
+                            *GUIDE_FITS["dist"])
+        check(abs(f["hr"] - GUIDE_EVAL[0]) <= 0.015
+              and abs(f["arhr"] - GUIDE_EVAL[1]) <= 0.010,
+              f"{tag}: HR / ARHR {f['hr']} / {f['arhr']}")
+        for g, (l1, l2, nnz, hr, arhr) in zip(ms["points"], GUIDE_MSELECT):
+            check((g["l1r"], g["l2r"]) == (l1, l2)
+                  and abs(g["nnz"] - nnz) <= 0.01 * nnz
+                  and abs(g["hr"] - hr) <= 0.015
+                  and abs(g["arhr"] - arhr) <= 0.010,
+                  f"{tag}: mselect point {g}")
+        check(ms["best"] == GUIDE_BEST, f"{tag}: best {ms['best']}")
+    else:
+        # the class model is the functional learn of the same config
+        check(abs(rec["train"]["loss"] - f["loss"]) <= 1e-4 * f["loss"],
+              f"{tag}: class {rec['train']['loss']} vs learn {f['loss']}")
+        for mode in ("replicated", "blockwise", "sharded_g"):
+            st = world[0][mode]
+            check(abs(st["loss"] - ml1m["objective"])
+                  <= DIST_OBJ_RTOL * ml1m["objective"]
+                  and abs(st["nnz"] - ml1m["model_nnz"])
+                  <= DIST_NNZ_RTOL * ml1m["model_nnz"],
+                  f"{tag} {mode}: {st['loss']} / {st['nnz']} vs phase 3b's "
+                  f"{ml1m['objective']} / {ml1m['model_nnz']}")
+
+
+def run_guide(dev, ml1m):
+    """Phase guide: docs/userguide_torch.py, every public entry point, on
+    cuda:0 at its guide shape (120 x 60, docs/userguide.py's data) and at
+    the ML-1M shape.  Each section's wall time and launches are printed
+    (section 9's in its two gloo ranks on the card).  Gates at both: each
+    ingestion path gives the matrix; the save / load round trip keeps the
+    lists; the walk and the packed grid pick one best pair; the knobs'
+    learns (device Gram, checkpoint and resume) give the functional fit;
+    every serving form the dense lists; the mesh walk scores on rank 0's
+    device route only; every rank the same distributed models.  At the
+    guide shape every fit, HR / ARHR and mselect point against the JAX
+    package's (GUIDE_*); at the ML-1M shape the class model against the
+    functional learn (objective 1e-4 rel) and every distributed learn
+    within DIST_OBJ_RTOL / DIST_NNZ_RTOL of phase 3b's."""
+    sys.path.insert(0, os.path.join(HERE, "docs"))
+    import userguide_torch as guide
+
+    out = {}
+    for shape in ("guide", "ml1m"):
+        rec, secs = _timed(lambda: guide.main(device="cuda:0", shape=shape))
+        for name, s in rec["sections"].items():
+            print(f"guide {shape} section {name}: {s['seconds']:.3f}s, "
+                  "launches", json.dumps({k: v for k, v in
+                                          s["launches"].items() if v}),
+                  flush=True)
+        ranks = [{k: v for k, v in r["launches"].items() if v}
+                 for r in rec["distributed"]]
+        print(f"guide {shape} section 9 ranks' launches", json.dumps(ranks),
+              flush=True)
+        _check_guide(shape, rec, ml1m)
+        f = rec["functional"]
+        out[shape] = dict(
+            seconds=secs, sections={k: s["seconds"]
+                                    for k, s in rec["sections"].items()},
+            rank_launches=ranks, train=rec["train"]["loss"],
+            functional=(f["loss"], f["nnz"], f["hr"], f["arhr"]),
+            best=rec["mselect"]["best"],
+            dist={m: rec["distributed"][0][m]["loss"]
+                  for m in ("replicated", "blockwise", "sharded_g")},
+            save_load_route=rec["save_load"]["route"],
+            unpinned_few_route=rec["serving"]["unpinned_few_route"])
+        print(f"guide {shape}:", json.dumps(out[shape]), flush=True)
     return out
 
 
@@ -1802,17 +2002,19 @@ def dist_learn(mode, trn, cfg, keep=None, mesh=None):
 
 def dist_grid(trn, tst, cfg, mesh=None):
     """A world's call: mselect_grid(parallel=True, mesh=) over GRID_L1 x
-    GRID_L2, without the models."""
-    from slim_tpu_torch.mselect import mselect_grid
+    GRID_L2, without the models, and the route of the rank's predicts in
+    it (None where it made none: rank 0 scores every point)."""
+    from slim_tpu_torch import mselect_grid, predict
 
-    with env(SLIM_PREDICT_NATIVE_NPAD="0"):   # evaluation on the card
-        res = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, parallel=True,
-                           mesh=mesh)
+    predict.last_route = None
+    res = mselect_grid(trn, tst, cfg, GRID_L1, GRID_L2, parallel=True,
+                       mesh=mesh)
     return dict(grid_s=res["grid_time"], best=(res["bestl1HR"],
                                                res["bestl2HR"]),
                 per_point=[{k: r[k] for k in ("l1r", "l2r", "loss", "nnz",
                                               "sweeps", "hr", "arhr")}
-                           for r in res["results"]])
+                           for r in res["results"]],
+                route=predict.last_route)
 
 
 def dist_predict(hist, keep, mesh=None):
@@ -1862,7 +2064,8 @@ def _fresh(mat):
 def _same_on_ranks(tag, ranks, key):
     """Every rank's record of ``key`` is the same but for its times."""
     recs = [{k: v for k, v in r[key]["result"].items()
-             if k not in ("learn_s", "cols_per_s", "grid_s")} for r in ranks]
+             if k not in ("learn_s", "cols_per_s", "grid_s", "route")}
+            for r in ranks]
     check(all(r == recs[0] for r in recs[1:]),
           f"{tag} {key}: ranks differ: {recs}")
 
@@ -1956,6 +2159,12 @@ def run_dist(trn, phase4):
     for a, b in zip(one["grid"]["per_point"], two["grid"]["per_point"]):
         check(a["nnz"] == b["nnz"] and abs(a["loss"] - b["loss"])
               <= DIST_OBJ_RTOL * a["loss"], f"gloo2 grid {b} vs {a}")
+    # the mesh grid's evaluations: rank 0 on a device route, the others
+    # none, with the native route on (no pin around the call)
+    for tag, ranks in (("dist_ml1m", nccl), ("dist_gloo2", gloo)):
+        routes = [r["grid"]["result"]["route"] for r in ranks]
+        check(routes[0] in DEVICE_ROUTES and routes[1:] == [None] * (
+            len(routes) - 1), f"{tag} grid evaluated on routes {routes}")
     return out
 
 
@@ -2065,6 +2274,7 @@ def main(argv=None):
               ("grid_ml20m", lambda: run_grid_ml20m(
                   dev, trn, results["mselect"][0])),
               ("api", lambda: run_api(dev)),
+              ("guide", lambda: run_guide(dev, results["ml1m"])),
               ("checkpoint", lambda: run_checkpoint(dev, trn,
                                                     results["ml20m"])),
               ("native", lambda: run_native(dev, trn, native_build_s,

@@ -18,8 +18,10 @@ Quick start::
 from .config import (SlimConfig, SLIM_OK, SLIM_ERROR, SLIM_DBG_INFO,
                      SLIM_DBG_TIME, SLIM_DBG_PROGRESS)
 from .types import CSR
-from .api import SLIM, SLIMatrix, learn, get_topn, read_model, write_model
+from .api import (SLIM, SLIMatrix, learn, get_topn, read_model, write_model,
+                  setup_training_matrix)
 from .eval import determine_head_tail, evaluate_topn, EvalResult
+from .mselect import mselect_grid, mselect_pairs
 from .predict import predict_topn, predict_topn_1vsk
 from . import io
 
@@ -27,9 +29,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "SlimConfig", "CSR", "SLIM", "SLIMatrix", "learn", "get_topn",
-    "read_model", "write_model",
-    "determine_head_tail", "evaluate_topn", "EvalResult", "predict_topn",
-    "predict_topn_1vsk",
+    "read_model", "write_model", "setup_training_matrix",
+    "determine_head_tail", "evaluate_topn", "EvalResult", "mselect_grid",
+    "mselect_pairs", "predict_topn", "predict_topn_1vsk",
     "io", "SLIM_OK", "SLIM_ERROR", "SLIM_DBG_INFO", "SLIM_DBG_TIME",
     "SLIM_DBG_PROGRESS", "__version__",
 ]

@@ -29,7 +29,13 @@ from .utils import resolve_device
 logger = logging.getLogger("slim_tpu_torch")
 
 __all__ = ["learn", "get_topn", "write_model", "read_model", "SLIM",
-           "SLIMatrix"]
+           "SLIMatrix", "setup_training_matrix"]
+
+
+def setup_training_matrix(train: CSR) -> CSR:
+    """Training-matrix setup (CreateTrainingMatrix, setup.c:109-135):
+    ncols from the largest column index when that is wider."""
+    return train.infer_ncols()
 
 
 def _profiled(run, profile_dir: str, dev):
@@ -70,7 +76,7 @@ def learn(train: CSR, cfg: Optional[SlimConfig] = None,
     cfg = cfg or SlimConfig()
     dev = resolve_device(device)
     t_total = time.perf_counter()
-    tmat = train.infer_ncols()     # CreateTrainingMatrix, setup.c:109-135
+    tmat = setup_training_matrix(train)
     t_setup = time.perf_counter() - t_total
     t_learn = time.perf_counter()
 

@@ -17,8 +17,11 @@ With ``mesh`` (a :func:`slim_tpu_torch.parallel.make_mesh` mesh, every
 rank calling) the Gram is all-reduced once from the ranks' row shards and
 each point's columns are solved across the ranks
 (``parallel.dist.distributed_learn``; the packed grid:
-``distributed_grid``), CD only; every rank gets every model and runs the
-evaluation itself, and no model stays on the device as a pack.
+``distributed_grid``), CD only; every rank gets every model, rank 0
+evaluates each point on its device (the dense route, or the sparse one
+above SPARSE_PREDICT_THRESHOLD; never the native host route) and
+broadcasts the result, as the JAX package evaluates once on its
+controller, and no model stays on the device as a pack.
 """
 
 from __future__ import annotations
@@ -54,15 +57,26 @@ def _aligned(train: CSR, test: CSR):
     return train, test.with_ncols(ncols), determine_head_tail(train, ncols)
 
 
-def _evaluate(model, train, test, fmarker, nrcmds, W_dev, dev):
-    """(eval record, predict s, metric s) of one point's model."""
+def _evaluate(model, train, test, fmarker, nrcmds, W_dev, dev, mesh=None):
+    """(eval record, predict s, metric s) of one point's model.  With
+    ``mesh``, rank 0's on its device route, broadcast to every rank."""
+    sparse = None
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from .parallel import comm
+
+        if dist.get_rank() != 0:
+            return comm.broadcast_object(None, dev)
+        sparse = bucket_npad(train.ncols) > SPARSE_PREDICT_THRESHOLD
     t0 = time.perf_counter()
     ids, _, counts = predict_topn(model, train, nrcmds=nrcmds, W_dev=W_dev,
-                                  device=dev)
+                                  sparse=sparse, device=dev)
     t_pred = time.perf_counter() - t0
     t0 = time.perf_counter()
     ev = evaluate_topn(ids, counts, test, fmarker, require_test_items=True)
-    return ev, t_pred, time.perf_counter() - t0
+    out = ev, t_pred, time.perf_counter() - t0
+    return out if mesh is None else comm.broadcast_object(out, dev)
 
 
 def _record(l1, l2, model, ev, stats, **times):
@@ -138,7 +152,7 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
         t_learn = time.perf_counter() - t0
         pack = stats.pop("W_dev", None)
         ev, t_pred, t_metric = _evaluate(model, train, test, fmarker,
-                                         cfg.nrcmds, pack, dev)
+                                         cfg.nrcmds, pack, dev, mesh)
         if pack is not None:
             pack.free_dense()
         rec = _record(l1, l2, model, ev, stats, time=t_learn,
@@ -204,7 +218,7 @@ def mselect_grid(train: CSR, test: CSR, cfg: SlimConfig, arrayl1, arrayl2,
     best = _best()
     for (l1, l2), (model, stats) in zip(points, solved):
         ev, t_pred, t_metric = _evaluate(model, train, test, fmarker,
-                                         cfg.nrcmds, None, dev)
+                                         cfg.nrcmds, None, dev, mesh)
         results.append(_record(l1, l2, model, ev, stats,
                                time=t_solve / max(len(points), 1),
                                time_kind="grid_average",

@@ -6,7 +6,7 @@ explicitly and every time: gloo is what lets several ranks share one card
 (NCCL refuses two ranks on one device), and the computation itself stays
 on the card.  ``group=None`` is the whole world.  Only calls that exist in
 every supported torch are used: ``all_reduce``, the list forms of
-``all_gather`` and ``reduce_scatter``.
+``all_gather`` and ``reduce_scatter``, and ``broadcast_object_list``.
 """
 
 from __future__ import annotations
@@ -96,3 +96,12 @@ def all_gather_host(x: np.ndarray, device, group=None) -> np.ndarray:
     t = torch.from_numpy(np.ascontiguousarray(x)[None]).to(
         wire(group, device))
     return all_gather(t, group).cpu().numpy()
+
+
+def broadcast_object(obj, device, src: int = 0, group=None):
+    """Rank ``src``'s picklable ``obj`` on every rank of ``group`` (the
+    other ranks' ``obj`` is ignored)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group,
+                               device=wire(group, device))
+    return box[0]

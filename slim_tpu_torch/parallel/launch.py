@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import resolve_device
 from .mesh import TIMEOUT_S, init_distributed, make_mesh
 
 
@@ -43,21 +44,24 @@ def _rank_main(rank, world, tmp, device, backend, timeout_s, fn, args):
     os.replace(path + ".tmp", path)
 
 
-def run_world(fn: Callable, world_size: int, args=(), device="cpu",
+def run_world(fn: Callable, world_size: int, args=(), device=None,
               backend=None, timeout_s: float = TIMEOUT_S):
     """``fn(*args)`` on each of ``world_size`` spawned ranks, returning the
     list of their results in rank order.
 
-    ``device``: "cpu" or "cuda" (rank r on card r modulo the visible
-    cards); ``backend`` as :func:`~.mesh.init_distributed` (default NCCL on
-    a card, gloo on the CPU; gloo lets several ranks share one card).  The
-    kernels are built here first, so the ranks only load them.  The world
-    has ``timeout_s`` to finish; the process group gets it as its own
-    timeout.  ``fn`` and ``args`` are pickled: a module-level function and
-    plain data (no tensor on a card)."""
+    ``device``: "cpu", "cuda" (rank r on card r modulo the visible cards)
+    or one card for every rank ("cuda:0"); default the card, as
+    :func:`~slim_tpu_torch.utils.resolve_device` (with no card it raises
+    before any rank starts); ``backend`` as :func:`~.mesh.init_distributed`
+    (default NCCL on a card, gloo on the CPU; gloo lets several ranks
+    share one card).  The kernels are built here first, so the ranks only
+    load them.  The world has ``timeout_s`` to finish; the process group
+    gets it as its own timeout.  ``fn`` and ``args`` are pickled: a
+    module-level function and plain data (no tensor on a card)."""
     import torch.multiprocessing as mp
 
-    if torch.device(device).type == "cuda":
+    device = resolve_device(device)
+    if device.type == "cuda":
         from ..ops import _build
 
         _build.build()
@@ -115,13 +119,15 @@ def plain(obj) -> Any:
     return obj
 
 
-def run_calls(calls, device="cpu", shape=None):
-    """Rank function: the (dp, mp) mesh (``shape`` or the default), then
-    each :class:`Call` in order with every kernel's launch counter set to
-    0 just before it.  Returns {key: {"result", "launches", "seconds"}}
-    for this rank."""
+def run_calls(calls, device=None, shape=None):
+    """Rank function: the (dp, mp) mesh (``shape`` or the default) on
+    ``device`` (default the card, as ``run_world``), then each
+    :class:`Call` in order with every kernel's launch counter set to 0
+    just before it.  Returns {key: {"result", "launches", "seconds"}} for
+    this rank."""
     from ..ops import kernel_wrappers
 
+    device = resolve_device(device)
     mesh = make_mesh(shape=shape, device=device)
     wrappers = kernel_wrappers()
     out = {}
@@ -133,7 +139,7 @@ def run_calls(calls, device="cpu", shape=None):
         try:
             t0 = time.perf_counter()
             res = c.fn(*c.args, mesh=mesh, **c.kwargs)
-            if torch.device(device).type == "cuda":
+            if device.type == "cuda":
                 torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         finally:

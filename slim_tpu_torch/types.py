@@ -149,14 +149,19 @@ class CSR:
         serving loop) then upload the flat CSR arrays once per device.
         Safe because CSR is immutable by contract: every transform
         (binarize/with_ncols/sort_indices/...) returns a new object.
+        The key is the device with its index ("cuda" is the current card),
+        so each spelling of one card shares one upload.
         """
         import torch
 
-        k = (str(torch.device(device)), key)
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        k = (str(dev), key)
         v = self._dev.get(k)
         if v is None:
             v = self._dev[k] = torch.from_numpy(
-                np.ascontiguousarray(build())).to(device)
+                np.ascontiguousarray(build())).to(dev)
         return v
 
     # ------------------------------------------------------------------ #

@@ -220,3 +220,57 @@ def test_profile_dir_writes_a_trace(tmp_path):
     assert len(traces) == 1 and stats["loss"] > 0
     events = json.load(open(traces[0]))["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_package_exports_every_name_of_the_jax_package():
+    """Every name in ``slim_tpu.__all__`` imports from ``slim_tpu_torch``
+    (``mselect_grid`` and ``mselect_pairs`` among them)."""
+    import slim_tpu
+    import slim_tpu_torch
+
+    missing = [n for n in slim_tpu.__all__ if not hasattr(slim_tpu_torch, n)]
+    assert missing == []
+    assert set(slim_tpu.__all__) <= set(slim_tpu_torch.__all__)
+    from slim_tpu_torch import (mselect_grid, mselect_pairs,  # noqa: F401
+                                setup_training_matrix)
+
+
+@pytest.mark.parametrize("ncols", [5, 10])
+def test_setup_training_matrix_matches_jax(ncols):
+    """Entries in columns 0-6 of a 10-column space whose last columns are
+    empty: declared 10 wide it stays 10 (the empty columns are kept),
+    declared 5 wide it widens to 7, as the JAX package's setup does."""
+    from slim_tpu.api import setup_training_matrix as jax_setup
+    from slim_tpu.types import CSR as JaxCSR
+    from slim_tpu_torch import setup_training_matrix
+    from slim_tpu_torch.types import CSR
+
+    rows = np.array([0, 0, 1, 2, 3])
+    cols = np.array([0, 6, 2, 6, 1])
+    vals = np.arange(1, 6, dtype=np.float32)
+    mine = CSR.from_ijv(rows, cols, vals, nrows=4, ncols=10).with_ncols(ncols)
+    theirs = JaxCSR.from_ijv(rows, cols, vals, nrows=4,
+                             ncols=10).with_ncols(ncols)
+    got, want = setup_training_matrix(mine), jax_setup(theirs)
+    assert got.ncols == want.ncols == max(ncols, 7)
+    np.testing.assert_array_equal(got.to_dense(), want.to_dense())
+
+
+def test_dev_put_keys_one_device_once():
+    """A device-upload cache entry is built once whatever the device's
+    spelling (the CPU has one; the card's "cuda" and "cuda:0" are held to
+    this in tests/test_torch_cuda.py)."""
+    from slim_tpu_torch.types import CSR
+
+    m = CSR.from_ijv(np.array([0, 1]), np.array([1, 0]),
+                     np.ones(2, np.float32), nrows=2, ncols=2)
+    built = []
+
+    def build():
+        built.append(1)
+        return m.indices.astype(np.int32)
+
+    a = m.dev_put("idx32", build, "cpu")
+    b = m.dev_put("idx32", build, torch.device("cpu"))
+    assert a is b and len(built) == 1
+    assert [k for k in m._dev if k[1] == "idx32"] == [("cpu", "idx32")]

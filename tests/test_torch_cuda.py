@@ -600,3 +600,24 @@ def test_ml20m_shaped_assembly_native_equals_scipy(dev, monkeypatch):
     np.testing.assert_array_equal(m1.indptr, m0.indptr)
     np.testing.assert_array_equal(m1.indices, m0.indices)
     np.testing.assert_array_equal(m1.data, m0.data)
+
+
+def test_one_history_upload_per_card(dev):
+    """learn with no device (the card as "cuda") and get_topn on its
+    device pack (whose tensors say "cuda:0") upload the matrix's ids once;
+    so do SLIM.train and SLIM.predict with no device."""
+    from slim_tpu_torch import SLIM, SLIMatrix, SlimConfig, get_topn, learn
+
+    mat = random_csr(np.random.default_rng(21), 300, 200, density=0.05)
+    m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices,
+                        mat.data)
+    cfg = SlimConfig(l1r=0.5, l2r=0.5)
+    model, stats = learn(m, cfg, keep_device_model=True)
+    get_topn(model, m, W_dev=stats["W_dev"])
+    assert [k for k in m._dev if k[1] == "idx32"] == [("cuda:0", "idx32")]
+    sm = SLIMatrix(m.to_scipy())
+    slim = SLIM()
+    slim.train(cfg, sm)
+    slim.predict(sm, nrcmds=10)
+    assert [k for k in sm.mat._dev if k[1] == "idx32"] == \
+        [("cuda:0", "idx32")]

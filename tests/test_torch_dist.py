@@ -123,6 +123,15 @@ def _last_predict_route(mesh=None):
     return predict.last_route
 
 
+def _routed(fn, *args, mesh=None, **kw):
+    """A world's call: ``fn(*args, mesh=mesh, **kw)`` and the route of the
+    rank's latest predict_topn in it (None if it made none)."""
+    from slim_tpu_torch import predict
+
+    predict.last_route = None
+    return fn(*args, mesh=mesh, **kw), predict.last_route
+
+
 @pytest.fixture(scope="module")
 def world2():
     """Every mode in one 2-rank gloo world: {key: [rank 0's, rank 1's]}."""
@@ -150,7 +159,15 @@ def world2():
     calls.append(L.Call("grid", mselect_grid, (trn, tst, SlimConfig(),
                                                [1.0, 4.0], [0.5, 2.0]),
                         dict(parallel=True)))
-    ranks = L.run_world(L.run_calls, 2, args=(calls, "cpu"), timeout_s=600)
+    # the same two with the native route on, as outside the suite
+    calls.append(L.Call("mselect_native_on", _routed,
+                        (mselect_pairs, trn, tst, SlimConfig(), PAIRS),
+                        env=on))
+    calls.append(L.Call("grid_native_on", _routed,
+                        (mselect_grid, trn, tst, SlimConfig(), [1.0, 4.0],
+                         [0.5, 2.0]), dict(parallel=True), env=on))
+    ranks = L.run_world(L.run_calls, 2, args=(calls, "cpu"), device="cpu",
+                        timeout_s=600)
     return {k: [r[k] for r in ranks] for k in ranks[0]}
 
 
@@ -165,7 +182,7 @@ def world4():
              L.Call("replicated", D.distributed_learn,
                     (_port(mk()), SlimConfig(**kw)))]
     ranks = L.run_world(L.run_calls, 4, args=(calls, "cpu", (2, 2)),
-                        timeout_s=600)
+                        device="cpu", timeout_s=600)
     return {k: [r[k] for r in ranks] for k in ranks[0]}
 
 
@@ -331,13 +348,58 @@ def test_packed_grid_on_a_mesh_matches_one_device(world2):
         assert g["hr"] == w["hr"] and g["arhr"] == w["arhr"]
 
 
+def _untimed(records):
+    return [{k: v for k, v in r.items()
+             if k not in ("time", "time_predict", "time_metric")}
+            for r in records]
+
+
+@pytest.mark.parametrize("key", ["mselect", "grid"])
+def test_mesh_mselect_scores_on_the_device_routes(world2, key):
+    """With the native route on and no route given, the mesh walk and the
+    packed grid score each point once, on rank 0's dense device route
+    (the other rank scores nothing and gets rank 0's records), and no rank
+    takes the native host route; every rank's records and best pairs are
+    those of the run with the route off."""
+    got = world2[f"{key}_native_on"]
+    routes = [r["result"][1] for r in got]
+    assert "native" not in routes
+    assert routes == ["dense", None]
+    want = world2[key][0]["result"]
+    for r in got:
+        res = r["result"][0]
+        assert _untimed(res["results"]) == _untimed(want["results"])
+        for k in ("bestl1HR", "bestl2HR", "bestl1AR", "bestl2AR"):
+            assert res[k] == want[k]
+
+
 def test_launcher_reraises_a_rank_failure():
     """A rank that raises stops the world, and its traceback comes back."""
     from torch.multiprocessing import ProcessRaisedException
 
     calls = [L.Call("bad", D.distributed_learn, (None, None))]
     with pytest.raises(ProcessRaisedException, match="AttributeError"):
-        L.run_world(L.run_calls, 2, args=(calls, "cpu"), timeout_s=120)
+        L.run_world(L.run_calls, 2, args=(calls, "cpu"), device="cpu",
+                    timeout_s=120)
+
+
+@pytest.mark.parametrize("entry", ["run_world", "run_calls"])
+def test_launcher_without_a_device_needs_a_card(monkeypatch, entry):
+    """run_world / run_calls with no device run on the card: with none
+    they raise before any rank is spawned or any group is joined."""
+    import torch.multiprocessing as mp
+
+    def no_spawn(*a, **k):
+        raise AssertionError("a rank was spawned")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(mp, "start_processes", no_spawn)
+    monkeypatch.setattr(M, "init_distributed", no_spawn)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        if entry == "run_world":
+            L.run_world(_last_predict_route, 1)
+        else:
+            L.run_calls([])
 
 
 def test_init_distributed_is_a_noop_when_initialised():
