@@ -11,7 +11,10 @@ Phases (any failure exits non-zero, and no result line is printed):
   1. card name and power limit (nvidia-smi); build the CUDA kernels and
      the native host runtime (g++; a missing compiler fails the run).
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes: densify (npad 28672), the whole-array row-major
+     main path's shapes: densify (npad 28672) into float32 and int8, and
+     into bfloat16 (``densify_bf16``, the dense predict's histories above
+     npad 8192; integer values 1-5 with duplicates, exact), the
+     whole-array row-major
      sweep (B 512 at npad 384, the synth path's, and 4096, the ML-1M
      path's), the coordinate-major sweep at B 1024, npad 28672, one sweep
      with every group active (phase 4's shape) and with 38 of 56 groups
@@ -30,7 +33,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      operations over the peak of their type) with what sets it, the
      kernel's share of it, and the time of the one PyTorch call that
      computes the same function: ``index_put_`` with accumulate for
-     densify, ``masked_select`` + ``nonzero`` for pack (the harvest's
+     densify (into a bfloat16 buffer for densify_bf16), ``masked_select``
+     + ``nonzero`` for pack (the harvest's
      offsets are contiguous).  With --profile DIR, one sweep of each wide-block
      variant (v4, v3, eager; all active, then 38/56) runs under
      torch.profiler; its device time by kernel goes to
@@ -46,8 +50,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      block on its FSLIM union): both against the JAX package's objective
      and nnz on JAX-CPU, every column on at most 50 coordinates.
   4. the ML-20M synth workload at full scale (generated once, shared by
-     phases 4-7): learn -> predict_topn for every user; objective and model
-     nnz against the JAX package's result.  With --profile DIR this phase
+     phases 4-7): learn -> predict_topn for every user, unpinned (the
+     dense route at "high": npad 28672 is above the npad-8192 rule);
+     objective and model nnz against the JAX package's result.  Then the
+     same users with the model on the card at "high", "highest" and
+     "default", two rounds in turns (each its least; users/s printed):
+     "high" against "highest" with every score within 2^-16 rel, and
+     held as two routes are (``check_agree``: the same counts, scores
+     within 1e-5 rel, ids equal but at near ties, a user the rule cannot
+     forgive held to the scipy oracle on both lists), its first 512 users
+     against the scipy oracle; "default" within 2^-7 rel (its differing
+     ids printed, not gated: the JAX package's own trade).  With --profile DIR
+     this phase
      runs under torch.profiler; device time by kernel and the device idle
      share go to DIR/profile_ml20m.{txt,json}.
   5. model selection (mselect_pairs) over (2, 2) -> (1, 1) with
@@ -276,14 +290,19 @@ GUIDE_BEST = (0.1, 0.5, 0.1, 0.5)
 # SLIM_COMPACT_FRAC=0 learn); the 262k-item serving phase scores sparse
 # and launches none; ADMM's products are plain matmuls (its Gram goes
 # through densify); the packed grids and the classes solve as the learns
-# of their shapes do
+# of their shapes do.  The dense predicts above npad 8192 that name no
+# precision (phases 4, 5, 7 and 14 at ML-20M) score at "high", their
+# histories densified into bfloat16 (densify_bf16)
 PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
                 "ml1m": ("densify", "cd_sweep", "pack"),
                 "ml1m_fslim": ("densify", "cd_sweep", "pack"),
-                "ml20m": ("densify", "cd_sweep_large", "pack"),
-                "mselect": ("densify", "cd_sweep_v3", "pack"),
+                "ml20m": ("densify", "densify_bf16", "cd_sweep_large",
+                          "pack"),
+                "mselect": ("densify", "densify_bf16", "cd_sweep_v3",
+                            "pack"),
                 "eager": ("densify", "cd_sweep_eager", "pack"),
-                "fslim": ("densify", "cd_sweep", "cd_sweep_large", "pack"),
+                "fslim": ("densify", "densify_bf16", "cd_sweep",
+                          "cd_sweep_large", "pack"),
                 "serve": (),
                 "admm": ("densify",),
                 "grid": ("densify", "cd_sweep", "pack"),
@@ -304,8 +323,9 @@ PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
                 "dist_2m": ("densify", "cd_sweep", "pack"),
                 "dist_gloo2": ("densify", "cd_sweep", "pack"),
                 # phase 14: the card's dense predict and Gram beside the
-                # host's (densify); no solve on the card
-                "native": ("densify",)}
+                # host's (densify, densify_bf16 for the ML-20M models);
+                # no solve on the card
+                "native": ("densify", "densify_bf16")}
 WIDE_SWEEPS = ("cd_sweep_large", "cd_sweep_v3", "cd_sweep_eager")
 _SWEEP_UNIT = ("sweeps: one wrapper call enqueues, per 128-wide chunk of "
                "the visit order, a group kernel (GS chain) and a "
@@ -319,7 +339,8 @@ _PANEL_UNIT = ("sweeps: one wrapper call enqueues, per group of the visit "
                "product) and, at a v3 window's slots after the first, a "
                "q-tile load; a tensor-core flush per window with work, and "
                "an end-of-sweep kernel")
-LAUNCH_UNIT = {"densify": "kernel launches", "pack": "kernel launches",
+LAUNCH_UNIT = {"densify": "kernel launches",
+               "densify_bf16": "kernel launches", "pack": "kernel launches",
                "cd_sweep": _SWEEP_UNIT, "cd_sweep_large": _LARGE_UNIT,
                "cd_sweep_v3": _PANEL_UNIT, "cd_sweep_eager": _PANEL_UNIT}
 
@@ -425,6 +446,8 @@ def check_gates(tag, stats):
 
 
 def check_densify(dev, rng):
+    """The densify lines: float32 (with the int8 output's error) and
+    bfloat16, each timed with its plain version and its library call."""
     from slim_tpu_torch.ops.densify import densify, densify_meta, densify_plain
 
     npad, W, R = 28672, 256, 8192
@@ -436,34 +459,41 @@ def check_densify(dev, rng):
     idsT = torch.from_numpy(ids).to(dev)
     valsT = torch.from_numpy(vals).to(dev)
     wmax = densify_meta(idsT, npad)
-    err = 0.0
-    for v, dt in ((valsT, torch.float32), (None, torch.int8)):
-        got = densify(idsT, v, wmax, npad, out_dtype=dt)
-        ref = densify_plain(idsT, v, wmax, npad,
-                            torch.zeros((npad, R), dtype=dt, device=dev))
-        err = max(err, (got.float() - ref.float()).abs().max().item())
-    ms = cuda_ms(lambda: densify(idsT, valsT, wmax, npad), 10)
-    plain_ms = cuda_ms(lambda: densify_plain(
-        idsT, valsT, wmax, npad,
-        torch.zeros((npad, R), dtype=torch.float32, device=dev)), 3)
-    check(err == 0.0, f"densify differs from plain by {err}")
     # the one library call: index_put_ with accumulate on flat indices of
     # the entries that pass the mask (the masking is done beforehand)
     ok = (idsT >= 0) & (idsT < npad)
     rr = torch.arange(R, device=dev).expand(W, R)
     flat = (idsT.long() * R + rr)[ok]
-    v = valsT[ok]
-    out = torch.zeros(npad * R, dtype=torch.float32, device=dev)
-    library_ms = cuda_ms(lambda: out.index_put_((flat,), v, accumulate=True),
-                         10)
-    line = dict(name="densify", route="cuda",
-                source="slim_tpu_torch/csrc/densify.cu",
-                replaces="slim_tpu/ops/pallas_gram.py:58",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                shape=f"W={W} R={R} npad={npad}", tol="exact")
-    # ids and values read once, the dense block written once
-    return with_bound(line, 8.0 * W * R + 4.0 * npad * R,
-                      library_ms=library_ms)
+    lines = []
+    for name, dt, kinds in (
+            ("densify", torch.float32, ((valsT, torch.float32),
+                                        (None, torch.int8))),
+            ("densify_bf16", torch.bfloat16, ((valsT, torch.bfloat16),))):
+        err = 0.0
+        for v, odt in kinds:
+            got = densify(idsT, v, wmax, npad, out_dtype=odt)
+            ref = densify_plain(idsT, v, wmax, npad,
+                                torch.zeros((npad, R), dtype=odt, device=dev))
+            err = max(err, (got.float() - ref.float()).abs().max().item())
+        check(err == 0.0, f"{name} differs from plain by {err}")
+        ms = cuda_ms(lambda: densify(idsT, valsT, wmax, npad, out_dtype=dt),
+                     10)
+        plain_ms = cuda_ms(lambda: densify_plain(
+            idsT, valsT, wmax, npad,
+            torch.zeros((npad, R), dtype=dt, device=dev)), 3)
+        v = valsT[ok].to(dt)
+        out = torch.zeros(npad * R, dtype=dt, device=dev)
+        library_ms = cuda_ms(
+            lambda: out.index_put_((flat,), v, accumulate=True), 10)
+        line = dict(name=name, route="cuda",
+                    source="slim_tpu_torch/csrc/densify.cu",
+                    replaces="slim_tpu/ops/pallas_gram.py:58",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    shape=f"W={W} R={R} npad={npad}", tol="exact")
+        # ids and values read once, the dense block written once
+        lines.append(with_bound(line, 8.0 * W * R + dt.itemsize * npad * R,
+                                library_ms=library_ms))
+    return lines
 
 
 def _sweep_inputs(dev, rng, n, nrows, nnz, B, large, nnbrs=0):
@@ -1197,7 +1227,7 @@ def _learn_predict_ml20m(dev, trn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # unpinned: the router keeps this model on the card (its per-user work
-    # is far above the native route's threshold)
+    # is far above the native route's threshold), at "high" by the npad rule
     ids, _, counts = predict_topn(model, trn, nrcmds=10, device=dev)
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
@@ -1207,13 +1237,61 @@ def _learn_predict_ml20m(dev, trn):
                objective=stats["loss"], model_nnz=stats["nnz"],
                predict_s=pred_s, predict_users_per_s=trn.nrows / pred_s,
                predict_route=P.last_route,
+               predict_precision=P.last_precision,
                cols_per_s=trn.ncols / stats["learn_s"])
     print("ml20m:", json.dumps(out))
-    check(P.last_route == "dense",
-          f"the ML-20M predict took the {P.last_route} route")
+    check(P.last_route == "dense" and P.last_precision == "high",
+          f"the ML-20M predict took the {P.last_route} route at "
+          f"{P.last_precision}")
     check(ids.shape == (trn.nrows, 10) and np.all(counts >= 0)
           and np.all(ids < trn.ncols), "predict output malformed")
     check_gates("ML-20M", stats)
+    out["precision"] = predict_precisions(model, trn, dev)
+    return out
+
+
+PRECISION_ORACLE_USERS = 512
+
+
+def predict_precisions(model, trn, dev):
+    """Phase 4's users at each precision with the model on the card (two
+    rounds in turns, each call its least), and the gates on "high" and
+    "default" against "highest" (see the module docstring)."""
+    from slim_tpu_torch.checks import ranked_mismatches, topn_oracle_mismatches
+    from slim_tpu_torch.predict import densify_model, predict_topn
+
+    W = densify_model(model, device=dev)
+    precs = ("high", "highest", "default")
+    res, secs = _in_turns([
+        (lambda p=p: predict_topn(model, trn, nrcmds=10, W_dev=W,
+                                  precision=p, device=dev))
+        for p in precs], under_s=60.0, rounds=2)
+    del W
+    got = dict(zip(precs, res))
+    ref = got["highest"]
+    ok = ref[0] >= 0
+    out = {}
+    for p, s in zip(precs, secs):
+        rel = np.abs(got[p][1][ok] - ref[1][ok]) / ref[1][ok]
+        differ, off = ranked_mismatches(*got[p][:2], *ref, rtol=1e-5)
+        out[p] = dict(s=min(s), runs_s=s, users_per_s=trn.nrows / min(s),
+                      max_rel_err=float(rel.max()) if rel.size else 0.0,
+                      ids_differ=differ, ids_differ_off_near_ties=off)
+    head = _head_rows(trn, PRECISION_ORACLE_USERS)
+    out["high"]["oracle_mismatches"] = topn_oracle_mismatches(
+        model, head, tuple(a[:PRECISION_ORACLE_USERS] for a in got["high"]))
+    print("ml20m precisions:", json.dumps(out), flush=True)
+    check(out["high"]["max_rel_err"] < 2.0 ** -16,
+          f"ML-20M high: scores {out['high']['max_rel_err']} rel from "
+          "highest")
+    out["high"]["agree"] = check_agree(
+        "ML-20M high vs highest", got["high"], ref, model=model, hist=trn)
+    check(out["high"]["oracle_mismatches"] == 0,
+          f"ML-20M high: {out['high']['oracle_mismatches']} of the first "
+          f"{PRECISION_ORACLE_USERS} users differ from the scipy oracle")
+    check(out["default"]["max_rel_err"] < 2.0 ** -7,
+          f"ML-20M default: scores {out['default']['max_rel_err']} rel "
+          "from highest")
     return out
 
 
@@ -2030,12 +2108,14 @@ def dist_predict(hist, keep, mesh=None):
 
 def dist_predict_ref(hist, keep, mesh=None):
     """A world's call, not part of a path: the single-device top-10 of
-    the first DIST_HEAD users on the kept model."""
+    the first DIST_HEAD users on the kept model, at "highest" as the
+    sharded predict scores."""
     from slim_tpu_torch.parallel.mesh import mesh_device
     from slim_tpu_torch.predict import predict_topn
 
     return predict_topn(_KEPT[keep], _head_rows(hist, DIST_HEAD), nrcmds=10,
-                        sparse=False, device=mesh_device(mesh))
+                        sparse=False, precision="highest",
+                        device=mesh_device(mesh))
 
 
 def _ml1m_calls():
@@ -2173,7 +2253,7 @@ def kernel_checks(dev, profile=None):
     docstring); returns the check records."""
     rng = np.random.default_rng(0)
     large = _sweep_inputs(dev, rng, 27278, 20000, 2_000_000, 1024, large=True)
-    checks = [check_densify(dev, rng)]
+    checks = check_densify(dev, rng)
     row = [_sweep_inputs(dev, rng, n, 4 * n, 40 * n, 512, large=False)
            for n in (300, 4000)]
     checks += [check_sweep(row[0]), check_sweep(row[1]),

@@ -4,8 +4,8 @@
 // Contract: out[c, r] += v for every entry (idsT[w, r] = c, valsT[w, r] = v)
 // with w < wmax[r / RT]; ids outside [0, npad) are sentinels and dropped;
 // duplicate ids accumulate.  valsT == nullptr means implicit 1.0 (binary).
-// out is (npad, R) with row stride ldo, f32 or int8, zeroed (or holding an
-// earlier pass) by the caller.
+// out is (npad, R) with row stride ldo, f32, int8 or bf16 (the TPU kernel's
+// out_dtype), zeroed (or holding an earlier pass) by the caller.
 //
 // What bounds it on the H100: memory traffic.  Reading idsT/valsT is
 // coalesced (thread r reads column r of a row-major (W, R) array, so a
@@ -17,9 +17,12 @@
 //
 // Design: one thread per output column r walks its W entries.  No other
 // thread writes column r, so the accumulation needs no atomics and
-// duplicates add up in entry order.  A block is one RT-row tile and reads
-// that tile's entry bound wmax (the densify_meta skip data) to stop early.
+// duplicates add up in entry order.  A bf16 output adds through f32 and
+// rounds once per entry (nearest even): integer sums up to 256 stay exact.
+// A block is one RT-row tile and reads that tile's entry bound wmax (the
+// densify_meta skip data) to stop early.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,6 +33,9 @@ constexpr int RT = 256;  // rows per block == rows per wmax tile
 __device__ __forceinline__ void add_to(float* p, float v) { *p += v; }
 __device__ __forceinline__ void add_to(int8_t* p, float v) {
   *p = static_cast<int8_t>(*p + static_cast<int>(v));
+}
+__device__ __forceinline__ void add_to(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(__bfloat162float(*p) + v);
 }
 
 template <typename OutT>
@@ -52,7 +58,7 @@ densify_kernel(const int32_t* __restrict__ idsT, const float* __restrict__ valsT
 
 }  // namespace
 
-// out_kind: 0 = float32, 1 = int8 (binary data only).
+// out_kind: 0 = float32, 1 = int8 (binary data only), 2 = bfloat16.
 extern "C" int slim_densify(const void* idsT, const void* valsT,
                             const void* wmax, int W, int R, int npad,
                             int out_kind, void* out, long long ldo,
@@ -65,11 +71,16 @@ extern "C" int slim_densify(const void* idsT, const void* valsT,
           static_cast<const int32_t*>(idsT), static_cast<const float*>(valsT),
           static_cast<const int32_t*>(wmax), W, R, npad,
           static_cast<float*>(out), ldo);
-    } else {
+    } else if (out_kind == 1) {
       densify_kernel<int8_t><<<grid, RT, 0, s>>>(
           static_cast<const int32_t*>(idsT), static_cast<const float*>(valsT),
           static_cast<const int32_t*>(wmax), W, R, npad,
           static_cast<int8_t*>(out), ldo);
+    } else {
+      densify_kernel<__nv_bfloat16><<<grid, RT, 0, s>>>(
+          static_cast<const int32_t*>(idsT), static_cast<const float*>(valsT),
+          static_cast<const int32_t*>(wmax), W, R, npad,
+          static_cast<__nv_bfloat16*>(out), ldo);
     }
   }
   return static_cast<int>(cudaGetLastError());

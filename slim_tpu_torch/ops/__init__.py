@@ -6,9 +6,10 @@ def kernel_wrappers() -> dict:
     launches of its kernel in ``launches`` (the sweeps: one per wrapper
     call)."""
     from .cd_sweep import cd_sweep, cd_sweep_eager, cd_sweep_large, cd_sweep_v3
-    from .densify import densify
+    from .densify import densify, densify_bf16
     from .pack import pack
 
-    return {"densify": densify, "cd_sweep": cd_sweep,
+    return {"densify": densify, "densify_bf16": densify_bf16,
+            "cd_sweep": cd_sweep,
             "cd_sweep_large": cd_sweep_large, "cd_sweep_v3": cd_sweep_v3,
             "cd_sweep_eager": cd_sweep_eager, "pack": pack}

@@ -5,7 +5,8 @@ replaces ``_densify_kernel`` / ``pallas_densify``; on Hopper it is a
 scatter of one store per entry, one thread per output column, so no
 thread races another and duplicate ids accumulate.  Its users are the
 Gram (ops/gram.py), the model densify and the history densify of the dense
-predict (predict.py).
+predict (predict.py), the latter into bfloat16 on the "high" and "default"
+routes (:func:`densify_bf16`, the TPU kernel's ``out_dtype``).
 
 Layout: ``idsT (W, R)`` holds the w-th column id of row r at
 ``idsT[w, r]``; ids outside [0, npad) are sentinels.  The output is the
@@ -20,6 +21,8 @@ import torch
 from . import _build
 
 RT = 256     # rows per wmax tile (one CUDA block)
+# output dtypes and the kernel's out_kind for each
+OUT_KIND = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 WCAP = 4096  # widest entry window one densify pass takes (densify_runs)
 SLAB = 4096  # runs gathered at once by densify_runs
 
@@ -52,8 +55,8 @@ def _check_args(idsT, valsT, wmax, npad, out):
         raise ValueError("wmax must be int32 (ceil(R / RT),)")
     if out.shape != (npad, R) or (R > 1 and out.stride(1) != 1):
         raise ValueError("out must be (npad, R) with unit column stride")
-    if out.dtype not in (torch.float32, torch.int8):
-        raise ValueError("out must be float32 or int8")
+    if out.dtype not in OUT_KIND:
+        raise ValueError("out must be float32, int8 or bfloat16")
     if out.dtype == torch.int8 and valsT is not None:
         raise ValueError("int8 output is for binary (valsT=None) data only")
     if len({t.device for t in (idsT, valsT, wmax, out)
@@ -84,9 +87,10 @@ def densify(idsT, valsT, wmax, npad, out_dtype=torch.float32, out=None):
 
     idsT (W, R) int32 (sentinels >= npad or < 0 dropped); valsT (W, R)
     float32 or None for implicit 1.0; wmax from :func:`densify_meta`.
-    ``out`` (npad, R), float32 or int8, may be a column slice of a wider
-    matrix and is accumulated into; a zeroed one is made when omitted.
-    CPU tensors take :func:`densify_plain`; CUDA tensors launch the kernel.
+    ``out`` (npad, R), float32, int8 or bfloat16, may be a column slice of
+    a wider matrix and is accumulated into; a zeroed one is made when
+    omitted.  CPU tensors take :func:`densify_plain`; CUDA tensors launch
+    the kernel, counted on :func:`densify_bf16` for a bfloat16 ``out``.
     """
     W, R = idsT.shape
     if out is None:
@@ -96,16 +100,29 @@ def densify(idsT, valsT, wmax, npad, out_dtype=torch.float32, out=None):
         return densify_plain(idsT, valsT, wmax, npad, out)
     if idsT.device.type != "cuda":
         raise ValueError(f"densify: unsupported device {idsT.device}")
-    densify.launches += 1
+    if out.dtype == torch.bfloat16:
+        densify_bf16.launches += 1
+    else:
+        densify.launches += 1
     _build.check(_build.lib().slim_densify(
         idsT.data_ptr(), None if valsT is None else valsT.data_ptr(),
-        wmax.data_ptr(), W, R, npad, 0 if out.dtype == torch.float32 else 1,
-        out.data_ptr(), out.stride(0), _build.stream_ptr(idsT.device)),
-        "slim_densify")
+        wmax.data_ptr(), W, R, npad, OUT_KIND[out.dtype], out.data_ptr(),
+        out.stride(0), _build.stream_ptr(idsT.device)), "slim_densify")
     return out
 
 
 densify.launches = 0
+
+
+def densify_bf16(idsT, valsT, wmax, npad, out=None):
+    """:func:`densify` into a bfloat16 block (the dense predict's histories
+    on its bfloat16 routes); the kernel adds through float32 and rounds
+    once per entry.  Its launches count here, apart from the float32 and
+    int8 ones, whichever of the two functions was called."""
+    return densify(idsT, valsT, wmax, npad, torch.bfloat16, out)
+
+
+densify_bf16.launches = 0
 
 
 def gathered_densifyT(idx, val, rs, rl, W, npad, out_dtype=torch.float32,

@@ -224,7 +224,7 @@ class _Ranked:
                                       self.posmap)
         dev = self.dev
         self.cols = torch.from_numpy(part.indices.astype(np.int64)).to(dev)
-        self.vals = torch.from_numpy(part.values()).to(dev)
+        self.vals = torch.from_numpy(part.values().astype(np.float32)).to(dev)
         self.diag = comm.all_reduce(torch.zeros(npad, device=dev).index_add_(
             0, self.cols, self.vals * self.vals))
 
@@ -523,7 +523,8 @@ def sharded_predict(model: CSR, hist: CSR, mesh, nrcmds: int = 10,
     device, on the device route the single-device predict picks
     (``sparse`` as there; unset, sparse above SPARSE_PREDICT_THRESHOLD),
     pinned so that no rank takes the native host route, as in the JAX
-    package, with ties at the lowest id, and the results are
+    package, scored at "highest" at every npad (the JAX package's
+    HIGHEST), with ties at the lowest id, and the results are
     all-gathered.  Returns (ids, scores, counts) as ``predict_topn``, the
     same on every rank."""
     from ..predict import SPARSE_PREDICT_THRESHOLD, predict_topn
@@ -540,7 +541,7 @@ def sharded_predict(model: CSR, hist: CSR, mesh, nrcmds: int = 10,
         sparse = bucket_npad(max(model.nrows, model.ncols, hist.ncols)) \
             > SPARSE_PREDICT_THRESHOLD
     ids, sc, cnt = predict_topn(model, mine, nrcmds, sparse=sparse,
-                                device=dev)
+                                precision="highest", device=dev)
     # one gather: ids, score bits and the count of each user as int32
     rows = np.zeros((per, 2 * nrcmds + 1), np.int32)
     rows[:u1 - u0] = np.concatenate([ids, sc.view(np.int32), cnt[:, None]],

@@ -13,9 +13,12 @@ order equal scores by the lowest id (:func:`topk_lowest_id`, the order
   the first-touched id first there.
 * **dense** (npad <= SPARSE_PREDICT_THRESHOLD): the model is densified on
   the device through the densify kernel (model rows as runs), each user
-  block's histories likewise; the scores are one float32 ``torch.matmul``
-  (TF32 off).  A model the solver kept on the device
-  (:class:`DeviceModelPack`) densifies there, with no upload.
+  block's histories likewise; the scores are a matrix product at the
+  call's precision (:func:`_score_precision`): one float32 ``torch.matmul``
+  (TF32 off) at ``"highest"``, bfloat16 operands with float32 sums on the
+  tensor cores at ``"high"`` (W split in two halves) and ``"default"``.
+  A model the solver kept on the device (:class:`DeviceModelPack`)
+  densifies there, with no upload.
 * **sparse score rows** (wider catalogues, or ``sparse=True``): each
   history entry expands to its model row's real entries (:class:`RowModel`)
   and the (user, candidate, weight) pairs scatter-add into a float32
@@ -83,9 +86,17 @@ CARD_S_PER_SCORE = 4e-14
 
 logger = logging.getLogger("slim_tpu_torch")
 
+# the scoring precision of the dense route: the JAX package's names
+# (jax.lax.Precision's), and the npad up to which a call that names none
+# scores at "highest" (the JAX package's _BF16_SCORE_NPAD)
+PRECISIONS = ("default", "high", "highest")
+_BF16_SCORE_NPAD = 8192
+
 # the route that served the latest predict_topn call: "native", "dense",
-# "rows" (sparse score rows) or "coo"
+# "rows" (sparse score rows) or "coo"; and the dense route's precision
+# there (None on the other routes)
 last_route = None
+last_precision = None
 
 
 def native_predict_work(model: CSR, hist: CSR, sample: int = 1 << 16) -> int:
@@ -128,6 +139,73 @@ def native_predict_applicable(n: int, model: CSR | None = None,
     card_s = CARD_S_PER_CALL + npad * npad * (
         CARD_S_PER_CELL + hist.nrows * CARD_S_PER_SCORE)
     return native_predict_work(model, hist) * HOST_S_PER_UPDATE <= card_s
+
+
+def _score_precision(npad: int, precision=None) -> str:
+    """The dense route's scoring precision (the JAX package's
+    ``_score_precision``): ``precision`` when given, a name of PRECISIONS
+    in any case or an object whose ``.name`` is one
+    (``jax.lax.Precision.HIGHEST``); else "highest" up to npad
+    _BF16_SCORE_NPAD and "high" above it, where the JAX package takes
+    "default".  A single bfloat16 pass (~2^-8 rel a score) moves top-N ids
+    the float32 lists hold at 1e-5 rel; the two-half product does not."""
+    if precision is None:
+        return "highest" if npad <= _BF16_SCORE_NPAD else "high"
+    name = getattr(precision, "name", precision)
+    if isinstance(name, str) and name.lower() in PRECISIONS:
+        return name.lower()
+    raise ValueError(f"precision {precision!r}: expected one of "
+                     f"{PRECISIONS}, in any case, or an object so named")
+
+
+def split_bf16(W, halves: int):
+    """W (npad, npad) float32 as bfloat16 halves stacked along K: rows
+    [0, npad) hold W_hi = bf16(W) and, with ``halves`` 2, rows [npad,
+    2 npad) W_lo = bf16(W - W_hi), so that W_hi + W_lo is W within 2^-16
+    rel.  The difference is taken in float32 element by element and
+    stored as bfloat16, with no temporary as large as W."""
+    npad, ncols = W.shape
+    Wk = torch.empty((halves * npad, ncols), dtype=torch.bfloat16,
+                     device=W.device)
+    Wk[:npad].copy_(W)
+    if halves == 2:
+        torch.sub(W, Wk[:npad], out=Wk[npad:])
+    return Wk
+
+
+def mm_f32(a, b):
+    """``a @ b`` of two bfloat16 matrices with float32 products and sums:
+    on the card one ``torch.mm`` with ``out_dtype`` float32 (tensor cores,
+    float32 accumulation); on the CPU the same operands multiplied in
+    float32.  A bfloat16 product is exact in float32, so both differ only
+    in the order of the sums."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def bf16_exact(hist: CSR) -> bool:
+    """True when densifying ``hist`` straight into bfloat16 is exact: every
+    value is a bfloat16 value (its low 16 bits are zero) and so is every
+    sum the densify makes.  Duplicate ids in a row add: a row whose ids
+    strictly ascend has none, and integer values whose row sums of |v|
+    are at most 256 keep every partial sum an integer bfloat16 holds."""
+    if hist.data is not None and (np.asarray(hist.data, np.float32).view(
+            np.uint32) & 0xFFFF).any():
+        return False
+    idx = hist.indices
+    if idx.size < 2:
+        return True
+    asc = idx[1:] > idx[:-1]
+    starts = hist.indptr[1:-1]
+    asc[starts[(starts > 0) & (starts < idx.size)] - 1] = True
+    if asc.all():
+        return True
+    v = hist.values()
+    if not np.array_equal(v, np.round(v)):
+        return False
+    cum = np.concatenate([[0.0], np.cumsum(np.abs(v), dtype=np.float64)])
+    return bool((cum[hist.indptr[1:]] - cum[hist.indptr[:-1]]).max() <= 256)
 
 
 def coo_npad() -> int:
@@ -185,6 +263,9 @@ class DeviceModelPack:
 
     @property
     def device(self):
+        if self.vals is None:
+            raise RuntimeError("this DeviceModelPack was freed (free()); "
+                               "predict from the model's CSR instead")
         return self.vals.device
 
     def densify(self):
@@ -210,6 +291,12 @@ class DeviceModelPack:
         """Drop the cached dense W and keep the flat pack (model selection
         does this after each evaluation)."""
         self._W = None
+
+    def free(self):
+        """Drop the pack and the cached dense W (the JAX package's
+        ``free``): the device memory goes, and :meth:`densify` raises
+        after."""
+        self.vals = self.idx = self._W = None
 
 
 def sparsify_model_device(model: CSR, npad: int | None = None, device=None):
@@ -317,14 +404,18 @@ def _user_block(npad: int, user_block: int) -> int:
 
 
 class _Route:
-    """Where one call scores: the dense ``W``, or the sparse ``rows`` by
-    score rows or, with ``coo``, by sorted pairs.  A
-    :class:`DeviceModelPack` whose npad is not the call's is ignored (the
-    model is uploaded), as in the JAX package (predict.py:1122-1125)."""
+    """Where one call scores: the dense ``W`` at ``precision`` (float32 at
+    "highest", else the :func:`split_bf16` halves), or the sparse ``rows``
+    by score rows or, with ``coo``, by sorted pairs (float32 sums whatever
+    the precision).  A :class:`DeviceModelPack` whose npad is not the
+    call's is ignored (the model is uploaded), as in the JAX package
+    (predict.py:1122-1125)."""
 
-    def __init__(self, model: CSR, hist: CSR, W_dev, sparse, device):
+    def __init__(self, model: CSR, hist: CSR, W_dev, sparse, device,
+                 precision=None):
         self.n = n = max(model.nrows, model.ncols, hist.ncols)
         self.npad = npad = bucket_npad(n)
+        self.precision = _score_precision(npad, precision)
         if isinstance(W_dev, DeviceModelPack):
             dev = W_dev.device
             if W_dev.npad != npad:
@@ -342,11 +433,13 @@ class _Route:
         self.coo = False
         if not sparse:
             if isinstance(W_dev, DeviceModelPack):
-                self.W = W_dev.densify()
+                W = W_dev.densify()
             elif torch.is_tensor(W_dev):
-                self.W = W_dev
+                W = W_dev
             else:
-                self.W = densify_model(model, npad, dev)
+                W = densify_model(model, npad, dev)
+            self.W = W if self.precision == "highest" else split_bf16(
+                W, 2 if self.precision == "high" else 1)
             return
         self.rows = RowModel.of_padded(*W_dev, npad) \
             if isinstance(W_dev, tuple) else RowModel.of_csr(model, npad, dev)
@@ -428,13 +521,20 @@ class _Route:
                            dev)
         val = None if ones else hist.dev_put(
             "val32", lambda: hist.values().astype(np.float32), dev)
+        # the bfloat16 routes densify straight to bfloat16 where that is
+        # exact (the JAX package's _get_predict_densify), else to float32
+        # and split there
+        straight = self.precision != "highest" and bf16_exact(hist)
         ub = _user_block(npad, user_block)
         for u0 in range(0, hist.nrows, ub):
             users = order[u0:u0 + ub]
             rs, rl = hist.indptr[users], row_nnz[users]
-            hdT = densify_runs(idx, val, rs, rl, npad, n, torch.zeros(
-                (npad, len(users)), dtype=torch.float32, device=dev))
-            sc = hdT.T @ self.W                            # (users, npad)
+            if self.precision == "highest":
+                hdT = densify_runs(idx, val, rs, rl, npad, n, torch.zeros(
+                    (npad, len(users)), dtype=torch.float32, device=dev))
+                sc = hdT.T @ self.W                        # (users, npad)
+            else:
+                hdT, sc = self._bf16_block(idx, val, rs, rl, straight)
             if mask:
                 maskT = hdT > 0 if ones else densify_runs(
                     idx, None, rs, rl, npad, n, torch.zeros(
@@ -442,6 +542,30 @@ class _Route:
                         device=dev)) > 0
                 sc.masked_fill_(maskT.T, float("-inf"))
             yield users, sc
+
+    def _bf16_block(self, idx, val, rs, rl, straight: bool):
+        """(the block's densified histories, its float32 scores) on the
+        bfloat16 halves ``self.W``: with one half (``"default"``) h_hi
+        W_hi, with two (``"high"``) [h_hi | h_hi] [W_hi ; W_lo] as one
+        product over the stacked K, plus h_lo W_hi where the histories are
+        not exact in bfloat16 (``straight`` False)."""
+        n, npad, dev = self.n, self.npad, self.dev
+        K = self.W.shape[0] // npad
+        H = torch.zeros((K * npad, len(rl)), dtype=torch.bfloat16,
+                        device=dev)
+        if straight:
+            hdT = densify_runs(idx, val, rs, rl, npad, n, H[:npad])
+        else:
+            hdT = densify_runs(idx, val, rs, rl, npad, n, torch.zeros(
+                (npad, len(rl)), dtype=torch.float32, device=dev))
+            H[:npad].copy_(hdT)
+        if K == 2:
+            H[npad:].copy_(H[:npad])
+        sc = mm_f32(H.T, self.W)                           # (users, npad)
+        if K == 2 and not straight:
+            sc += mm_f32((hdT - H[:npad].float()).bfloat16().T,
+                         self.W[:npad])
+        return hdT, sc
 
     def coo_runs(self, hist: CSR, exclude: bool):
         """(u0, u1, keys, sums) per step of the COO route: the sorted
@@ -518,8 +642,8 @@ def _gather_scores(sc, cd, n: int):
 
 
 def predict_topn(model: CSR, hist: CSR, nrcmds: int = 10,
-                 user_block: int = 1024, W_dev=None, sparse=None, scan=None,
-                 device=None):
+                 user_block: int = 1024, W_dev=None, sparse=None,
+                 precision=None, scan=None, device=None):
     """Top-N for every user row of ``hist``.
 
     Returns (ids (nusers, nrcmds) int32 with -1 padding, scores (nusers,
@@ -527,21 +651,26 @@ def predict_topn(model: CSR, hist: CSR, nrcmds: int = 10,
     model from :func:`densify_model` to reuse across calls, a
     :class:`DeviceModelPack`, or a :func:`sparsify_model_device` pair
     (which routes sparse).  ``sparse`` pins the route (default: sparse
-    above SPARSE_PREDICT_THRESHOLD); ``scan`` is accepted and ignored.
-    A call that pins nothing (no ``W_dev``, ``sparse`` or ``scan``) and that
+    above SPARSE_PREDICT_THRESHOLD); ``precision`` the dense route's
+    scoring ("default", "high" or "highest", or ``jax.lax.Precision``'s
+    member of that name; default :func:`_score_precision`'s npad rule);
+    ``scan`` is accepted and ignored.  A call that pins nothing (no
+    ``W_dev``, ``sparse``, ``precision`` or ``scan``) and that
     :func:`native_predict_applicable` accepts scores on the host by the
     native loop, whatever ``device`` is."""
-    global last_route
+    global last_route, last_precision
     n = max(model.nrows, model.ncols, hist.ncols)
     if W_dev is None and sparse is None and scan is None \
+            and precision is None \
             and native_predict_applicable(n, model, hist):
         logger.info("predict_topn: %d users of a %d-item catalogue on the "
                     "native host route", hist.nrows, n)
-        last_route = "native"
+        last_route, last_precision = "native", None
         return native.predict_topn(model, hist, nrcmds=nrcmds)
-    r = _Route(model, hist, W_dev, sparse, device)
+    r = _Route(model, hist, W_dev, sparse, device, precision)
     last_route = "coo" if r.coo else ("dense" if r.W is not None
                                       else "rows")
+    last_precision = r.precision if r.W is not None else None
     nusers = hist.nrows
     ids = np.full((nusers, nrcmds), -1, np.int32)
     scores = np.zeros((nusers, nrcmds), np.float32)
@@ -581,8 +710,9 @@ def predict_candidate_scores(model: CSR, hist: CSR, cand, W_dev=None,
     ``cand`` is (nusers, C) int32 with -1 padding.  Returns (cscores
     (nusers, C) float32, 0 for unscored, -1, out-of-range and history
     candidates; nscored (nusers,) int32, the user's count of items with
-    score > 0 over all items, which truncates the final list)."""
-    r = _Route(model, hist, W_dev, sparse, device)
+    score > 0 over all items, which truncates the final list).  Scores at
+    "highest" at every npad, as the JAX package does."""
+    r = _Route(model, hist, W_dev, sparse, device, "highest")
     cand = _check_cand(hist, cand)
     out_cs = np.zeros(cand.shape, np.float32)
     out_ns = np.zeros(hist.nrows, np.int32)
@@ -610,8 +740,9 @@ def predict_topn_1vsk(model: CSR, hist: CSR, negitems, nrcmds: int = 10,
     candidates ``negitems`` (nusers, nnegs), equal scores at the lowest
     candidate position first.  The history is not excluded; out-of-range
     ids score 0 and keep their slot (predict.c:97-106).  Returns (ids,
-    scores, counts), counts being the full width."""
-    r = _Route(model, hist, W_dev, sparse, device)
+    scores, counts), counts being the full width.  Scores at "highest" at
+    every npad, as the JAX package does."""
+    r = _Route(model, hist, W_dev, sparse, device, "highest")
     neg = _check_cand(hist, negitems)
     kk = min(nrcmds, neg.shape[1])
     ids = np.full((hist.nrows, kk), -1, np.int32)

@@ -31,6 +31,13 @@ class CSR:
 
     ``indptr`` is int64 (the reference uses ``ssize_t`` rowptr, slim.h:108)
     so nnz > 2^31 works; ``indices`` is int32; ``data`` float32.
+
+    The three arrays are read-only views of the arrays the CSR was built
+    from (the caller's arrays keep their own flags): a write through the
+    CSR raises, so no cache of it (device uploads, transpose, column
+    norms) can be stale from one.  The views share the caller's memory,
+    so the caller must not write through its own references after
+    building a CSR either; a changed matrix is a new CSR.
     """
 
     nrows: int
@@ -44,6 +51,14 @@ class CSR:
     _cnorms: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
     # cached device uploads (see dev_put)
     _dev: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        for name in ("indptr", "indices", "data"):
+            a = getattr(self, name)
+            if a is not None and a.flags.writeable:
+                a = np.asarray(a).view()
+                a.flags.writeable = False
+                setattr(self, name, a)
 
     # ------------------------------------------------------------------ #
     # constructors
@@ -147,10 +162,11 @@ class CSR:
 
         Repeated learns/predicts over the same matrix (bench repeats, a
         serving loop) then upload the flat CSR arrays once per device.
-        Safe because CSR is immutable by contract: every transform
-        (binarize/with_ncols/sort_indices/...) returns a new object.
-        The key is the device with its index ("cuda" is the current card),
-        so each spelling of one card shares one upload.
+        Safe because the CSR's arrays are read-only views (a write through
+        them raises) and every transform (binarize/with_ncols/
+        sort_indices/...) returns a new object.  The key is the device
+        with its index ("cuda" is the current card), so each spelling of
+        one card shares one upload.
         """
         import torch
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from conftest import random_csr
+from slim_tpu_torch.checks import ranked_mismatches
 from slim_tpu_torch.ops import cd_sweep as S
 from slim_tpu_torch.ops import densify as D
 from slim_tpu_torch.ops import gram as G
@@ -621,3 +622,58 @@ def test_one_history_upload_per_card(dev):
     slim.predict(sm, nrcmds=10)
     assert [k for k in sm.mat._dev if k[1] == "idx32"] == \
         [("cuda:0", "idx32")]
+
+
+@pytest.mark.parametrize("valued", [False, True])
+def test_densify_bf16_matches_plain(dev, rng, valued):
+    """The bfloat16 output (out_kind 2) against densify_plain into
+    bfloat16, exact on integer values 1-5 with duplicate ids, into a
+    column slice of a wider block; one launch counted on densify_bf16."""
+    npad, W, R = 9216, 40, 300
+    ids = rng.integers(-2, npad + 3, (W, R)).astype(np.int32)
+    ids[1, ::3] = ids[0, ::3]
+    vals = rng.integers(1, 6, (W, R)).astype(np.float32)
+    idsT = torch.from_numpy(ids).to(dev)
+    valsT = torch.from_numpy(vals).to(dev) if valued else None
+    wmax = D.densify_meta(idsT, npad)
+    wide = torch.zeros((npad, R + 9), dtype=torch.bfloat16, device=dev)
+    n16, n32 = D.densify_bf16.launches, D.densify.launches
+    got = D.densify_bf16(idsT, valsT, wmax, npad, out=wide[:, 4:4 + R])
+    torch.cuda.synchronize()
+    assert D.densify_bf16.launches == n16 + 1 and D.densify.launches == n32
+    ref = D.densify_plain(idsT, valsT, wmax, npad, torch.zeros(
+        (npad, R), dtype=torch.bfloat16, device=dev))
+    assert torch.equal(got, ref) and ref.float().max() > 1
+    assert wide[:, :4].abs().sum() == 0 and wide[:, 4 + R:].abs().sum() == 0
+
+
+@pytest.mark.parametrize("kind", ["binary", "ratings", "fractional"])
+def test_high_precision_on_card_matches_highest(dev, rng, kind):
+    """Above npad 8192 a call that names no precision scores at "high"
+    (the split bfloat16 product on the tensor cores; fractional ratings
+    densify to float32 and split): against "highest" on the card, the same
+    counts, scores within 2^-16 rel and ids equal but at near ties, for a
+    few hundred users."""
+    from slim_tpu_torch import predict as Pr
+
+    n, nusers = 9000, 300
+    r, c = rng.integers(0, n, 160_000), rng.integers(0, n, 160_000)
+    model = CSR.from_ijv(r, c, rng.random(r.size).astype(np.float32) + 0.01,
+                         nrows=n, ncols=n)
+    u, i = rng.integers(0, nusers, 30_000), rng.integers(0, n, 30_000)
+    v = rng.integers(1, 6, u.size).astype(np.float32)
+    hist = CSR.from_ijv(u, i, v + (0.3 if kind == "fractional" else 0.0),
+                        nrows=nusers, ncols=n)
+    if kind == "binary":
+        hist = hist.binarize()
+    n16 = D.densify_bf16.launches
+    got = predict_topn(model, hist, nrcmds=10, sparse=False, device=dev)
+    assert Pr.last_route == "dense"
+    assert (D.densify_bf16.launches > n16) == (kind != "fractional")
+    ref = predict_topn(model, hist, nrcmds=10, sparse=False,
+                       precision="highest", device=dev)
+    np.testing.assert_array_equal(got[2], ref[2])
+    ok = ref[0] >= 0
+    assert np.all(np.abs(got[1][ok] - ref[1][ok])
+                  <= 2.0 ** -16 * ref[1][ok])
+    assert ranked_mismatches(got[0], got[1], ref[0], ref[1], ref[2])[1] == 0

@@ -114,6 +114,70 @@ def test_dev_put_caches_per_device(rng):
     assert a is b and len(calls) == 1 and a.dtype == torch.int32
 
 
+@pytest.mark.parametrize("change", ["indices", "data"])
+def test_history_changed_in_place_is_not_scored_stale(change):
+    """After one predict_topn call, a write into the history's ids or
+    ratings through the CSR either raises or is scored by the next call:
+    its result is a fresh CSR's of the arrays as they then are (the
+    device-upload cache never serves the old arrays)."""
+    from slim_tpu_torch.predict import predict_topn
+
+    rng = np.random.default_rng(12)
+    model = _port_csr(random_csr(rng, 40, 40, density=0.2))
+    hist = _port_csr(random_csr(rng, 30, 40, density=0.15))
+    predict_topn(model, hist, nrcmds=5, sparse=False, device="cpu")
+    try:
+        if change == "indices":
+            hist.indices[:] = (hist.indices + 7) % 40
+        else:
+            hist.data[:] = hist.data[::-1] * 2
+    except ValueError:
+        pass                                    # refused: nothing changed
+    fresh = CSR.from_arrays(hist.nrows, hist.ncols, hist.indptr.copy(),
+                            hist.indices.copy(), hist.data.copy())
+    got = predict_topn(model, hist, nrcmds=5, sparse=False, device="cpu")
+    want = predict_topn(model, fresh, nrcmds=5, sparse=False, device="cpu")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_csr_arrays_are_read_only_views():
+    """A CSR views the arrays it is built from, read-only: writes through
+    it raise, the caller's arrays keep their flags and memory, and the
+    CSRs that transforms return are read-only too."""
+    indptr = np.array([0, 2, 3], np.int64)
+    indices = np.array([1, 2, 0], np.int32)
+    data = np.array([1.0, 2.0, 3.0], np.float32)
+    m = CSR.from_arrays(2, 3, indptr, indices, data)
+    for own, mine in ((indptr, m.indptr), (indices, m.indices),
+                      (data, m.data)):
+        assert own.flags.writeable and not mine.flags.writeable
+        assert np.shares_memory(own, mine)
+        with pytest.raises(ValueError, match="read-only"):
+            mine[0] = mine[0]
+    for t in (m.binarize(), m.transpose(), m.with_ncols(5),
+              m.sum_duplicate_entries()):
+        assert not t.indices.flags.writeable
+        assert not t.indptr.flags.writeable
+
+
+def test_freed_device_pack_raises():
+    """DeviceModelPack.free() drops the pack and its dense W; densify()
+    after it raises, naming the call."""
+    from slim_tpu_torch import learn
+
+    m = _port_csr(random_csr(np.random.default_rng(13), 60, 30,
+                             density=0.2))
+    _, stats = learn(m, SlimConfig(l1r=0.5, l2r=0.5), keep_device_model=True,
+                     device="cpu")
+    pack = stats["W_dev"]
+    assert pack.densify().shape == (pack.npad, pack.npad)
+    pack.free()
+    assert pack.vals is None and pack.idx is None and pack._W is None
+    with pytest.raises(RuntimeError, match="free"):
+        pack.densify()
+
+
 def test_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import slim_tpu_torch, slim_tpu_torch.cli.slim_learn, "
