@@ -10,11 +10,17 @@
 Phases (any failure exits non-zero, and no result line is printed):
   1. card name and power limit (nvidia-smi); build the CUDA kernels and
      the native host runtime (g++; a missing compiler fails the run).
-  2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes: densify (npad 28672) into float32 and int8, and
-     into bfloat16 (``densify_bf16``, the dense predict's histories above
-     npad 8192; integer values 1-5 with duplicates, exact), the
-     whole-array row-major
+  2. (after the ML-20M synth matrix is generated, in phase "datagen")
+     each kernel against its plain PyTorch version on the card, at the
+     main path's shapes: densify (npad 28672, the TPU kernel's (W, R)
+     layout, a fresh block) into float32 and int8, and into bfloat16
+     (``densify_bf16``, the dense predict's histories above npad 8192;
+     integer values 1-5 with duplicates, exact; a column of 256, 1 and 1
+     must give 258: one rounding, as the TPU kernel's), and the whole
+     ``densify_runs`` call at the ML-20M Gram's first block (int8) and the
+     "high" predict's first user block (bfloat16), each against its plain
+     version, exact (``extra``: densify@gram_ml20m,
+     densify_bf16@hist_ml20m), the whole-array row-major
      sweep (B 512 at npad 384, the synth path's, and 4096, the ML-1M
      path's), the coordinate-major sweep at B 1024, npad 28672, one sweep
      with every group active (phase 4's shape) and with 38 of 56 groups
@@ -60,8 +66,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      within 1e-5 rel, ids equal but at near ties, a user the rule cannot
      forgive held to the scipy oracle on both lists), its first 512 users
      against the scipy oracle; "default" within 2^-7 rel (its differing
-     ids printed, not gated: the JAX package's own trade).  With --profile DIR
-     this phase
+     ids printed, not gated: the JAX package's own trade).  Last, the
+     model densified row-major (``predict.densify_model``) against the
+     transposed densify plus a transpose copy, in turns, equal.  With
+     --profile DIR this phase
      runs under torch.profiler; device time by kernel and the device idle
      share go to DIR/profile_ml20m.{txt,json}.
   5. model selection (mselect_pairs) over (2, 2) -> (1, 1) with
@@ -339,8 +347,10 @@ _PANEL_UNIT = ("sweeps: one wrapper call enqueues, per group of the visit "
                "product) and, at a v3 window's slots after the first, a "
                "q-tile load; a tensor-core flush per window with work, and "
                "an end-of-sweep kernel")
-LAUNCH_UNIT = {"densify": "kernel launches",
-               "densify_bf16": "kernel launches", "pack": "kernel launches",
+_DENSIFY_UNIT = ("kernel launches: one per densify / densify_runs call, "
+                 "whatever the block's size or its longest run")
+LAUNCH_UNIT = {"densify": _DENSIFY_UNIT, "densify_bf16": _DENSIFY_UNIT,
+               "pack": "kernel launches",
                "cd_sweep": _SWEEP_UNIT, "cd_sweep_large": _LARGE_UNIT,
                "cd_sweep_v3": _PANEL_UNIT, "cd_sweep_eager": _PANEL_UNIT}
 
@@ -445,9 +455,11 @@ def check_gates(tag, stats):
           f"{tag} model nnz {stats['nnz']}")
 
 
-def check_densify(dev, rng):
+def check_densify(dev, rng, trn):
     """The densify lines: float32 (with the int8 output's error) and
-    bfloat16, each timed with its plain version and its library call."""
+    bfloat16, each timed with its plain version and its library call, at
+    the TPU kernel's (W, R) layout; then the whole ``densify_runs`` call at
+    two of the main path's blocks of ``trn`` (ML-20M)."""
     from slim_tpu_torch.ops.densify import densify, densify_meta, densify_plain
 
     npad, W, R = 28672, 256, 8192
@@ -476,6 +488,7 @@ def check_densify(dev, rng):
                                 torch.zeros((npad, R), dtype=odt, device=dev))
             err = max(err, (got.float() - ref.float()).abs().max().item())
         check(err == 0.0, f"{name} differs from plain by {err}")
+        # the timed call writes a fresh block, zeros included
         ms = cuda_ms(lambda: densify(idsT, valsT, wmax, npad, out_dtype=dt),
                      10)
         plain_ms = cuda_ms(lambda: densify_plain(
@@ -493,7 +506,93 @@ def check_densify(dev, rng):
         # ids and values read once, the dense block written once
         lines.append(with_bound(line, 8.0 * W * R + dt.itemsize * npad * R,
                                 library_ms=library_ms))
+    # bfloat16 sums round once, as the TPU kernel casts its f32 tile: a
+    # column of 256, 1 and 1 is 258 (256 when rounded after each entry)
+    ids1 = torch.full((4, 256), npad, dtype=torch.int32, device=dev)
+    v1 = torch.zeros((4, 256), device=dev)
+    ids1[:3, 7] = 5
+    v1[:3, 7] = torch.tensor([256.0, 1.0, 1.0])
+    got = densify(ids1, v1, densify_meta(ids1, npad), npad,
+                  out_dtype=torch.bfloat16)[5, 7].item()
+    check(got == 258.0, f"densify_bf16 gave {got} for 256 + 1 + 1")
+    lines += [check_densify_runs(dev, trn, *blk)
+              for blk in densify_blocks(trn)]
     return lines
+
+
+def densify_blocks(trn):
+    """(name, runs, n_valid, dtype) of two densify_runs calls of the main
+    path on the ML-20M matrix: the Gram's first block as
+    ``ops.gram.gram_partial`` takes it (the longest rows, nnz-sorted, the
+    block padded with empty rows to an RT multiple; int8 out) and the first
+    user block of the dense predict at "high" (``predict._user_block``
+    users of the longest histories; bfloat16 out, ids >= ncols dropped)."""
+    from slim_tpu_torch.ops.gram import RT, WCAP, _row_block, pow2_width
+    from slim_tpu_torch.predict import _user_block
+    from slim_tpu_torch.solvers.cd import bucket_npad
+
+    npad = bucket_npad(trn.ncols)
+    row_nnz = trn.row_nnz().astype(np.int64)
+    order = np.argsort(-row_nnz, kind="stable")
+    take = min(_row_block(min(pow2_width(row_nnz[order[0]]), WCAP)),
+               trn.nrows)
+    R = max(-(-take // RT) * RT, RT)
+    gram = np.zeros((2, R), np.int64)
+    gram[0, :take] = trn.indptr[order[:take]]
+    gram[1, :take] = row_nnz[order[:take]]
+    users = order[:_user_block(npad, 1024)]
+    return (("densify@gram_ml20m", gram, None, torch.int8),
+            ("densify_bf16@hist_ml20m",
+             np.stack([trn.indptr[users], row_nnz[users]]), trn.ncols,
+             torch.bfloat16))
+
+
+def check_densify_runs(dev, trn, name, runs, n_valid, dt):
+    """One densify_runs call of the main path (what its caller pays: the
+    runs' upload, the fresh block and the kernel) against its plain
+    version (exact: binary data) and ``index_put_`` with accumulate into a
+    zeroed block; the bound counts each id read once, the run table (12
+    bytes a run) and the block written once."""
+    from slim_tpu_torch.ops.densify import densify_runs, densify_runs_plain
+    from slim_tpu_torch.solvers.cd import bucket_npad
+
+    npad = bucket_npad(trn.ncols)
+    idx = trn.dev_put("idx32", lambda: trn.indices.astype(np.int32), dev)
+    rs, rl = runs
+    R = rs.size
+
+    def call(fn):
+        return fn(idx, None, rs, rl, npad, n_valid, torch.empty(
+            (npad, R), dtype=dt, device=dev))
+
+    got = call(densify_runs)
+    ref, plain_ms = once_ms(lambda: call(densify_runs_plain))
+    err = (got.float() - ref.float()).abs().max().item()
+    check(err == 0.0, f"{name} differs from plain by {err}")
+    del got, ref
+    ms = cuda_ms(lambda: call(densify_runs), 10)
+    # the library call: the entries' flat positions c * R + r (kept ids
+    # only, computed beforehand), ones added by index_put_
+    r = torch.from_numpy(np.repeat(np.arange(R), rl)).to(dev)
+    e = torch.from_numpy(np.concatenate(
+        [np.arange(s, s + n) for s, n in zip(rs, rl)])).to(dev)
+    c = idx[e].long()
+    keep = c < (npad if n_valid is None else n_valid)
+    flat = (c * R + r)[keep]
+    ones = torch.ones(flat.numel(), dtype=dt, device=dev)
+    out = torch.zeros(npad * R, dtype=dt, device=dev)
+    library_ms = cuda_ms(
+        lambda: out.index_put_((flat,), ones, accumulate=True), 10)
+    nnz = int(rl.sum())
+    line = dict(name=name, route="cuda",
+                source="slim_tpu_torch/csrc/densify.cu",
+                replaces="slim_tpu/ops/pallas_gram.py:58",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                shape=f"densify_runs R={R} entries={nnz} longest="
+                      f"{int(rl.max())} npad={npad} {str(dt)[6:]}",
+                tol="exact")
+    return with_bound(line, 4.0 * nnz + 12.0 * R + dt.itemsize * npad * R,
+                      library_ms=library_ms)
 
 
 def _sweep_inputs(dev, rng, n, nrows, nnz, B, large, nnbrs=0):
@@ -1247,7 +1346,44 @@ def _learn_predict_ml20m(dev, trn):
           and np.all(ids < trn.ncols), "predict output malformed")
     check_gates("ML-20M", stats)
     out["precision"] = predict_precisions(model, trn, dev)
+    out["model_densify"] = model_densify_times(model, dev)
     return out
+
+
+def model_densify_times(model, dev):
+    """Phase 4's model densified as ``predict.densify_model`` does it (its
+    27,278 rows as runs straight into W's rows: one row-major launch)
+    against the transposed densify plus a transpose copy, in turns, each
+    its least of 3; the two W must be equal."""
+    from slim_tpu_torch.ops.densify import densify_runs
+    from slim_tpu_torch.predict import densify_model
+    from slim_tpu_torch.solvers.cd import bucket_npad
+
+    npad = bucket_npad(max(model.nrows, model.ncols))
+    rs = np.zeros(npad, np.int64)
+    rl = np.zeros(npad, np.int64)
+    rs[:model.nrows] = model.indptr[:-1]
+    rl[:model.nrows] = model.row_nnz()
+    idx = model.dev_put("idx32", lambda: model.indices.astype(np.int32), dev)
+    val = model.dev_put("val32", lambda: model.values().astype(np.float32),
+                        dev)
+
+    def transposed():
+        M = densify_runs(idx, val, rs, rl, npad, npad, torch.empty(
+            (npad, npad), device=dev))
+        return M.T.contiguous()
+
+    (rm, tr), secs = _in_turns(
+        [lambda: densify_model(model, npad, dev), transposed], under_s=60.0,
+        rounds=3)
+    same = bool(torch.equal(rm, tr))
+    del rm, tr
+    line = dict(runs=model.nrows, npad=npad, nnz=model.nnz,
+                row_major_s=min(secs[0]), transposed_copy_s=min(secs[1]),
+                runs_s=secs, equal=same)
+    print("ml20m model densify:", json.dumps(line), flush=True)
+    check(same, "densify_model differs from the transposed densify's .T")
+    return line
 
 
 PRECISION_ORACLE_USERS = 512
@@ -2248,12 +2384,12 @@ def run_dist(trn, phase4):
     return out
 
 
-def kernel_checks(dev, profile=None):
+def kernel_checks(dev, trn, profile=None):
     """Phase 2: every kernel against its plain version (see the module
     docstring); returns the check records."""
     rng = np.random.default_rng(0)
     large = _sweep_inputs(dev, rng, 27278, 20000, 2_000_000, 1024, large=True)
-    checks = check_densify(dev, rng)
+    checks = check_densify(dev, rng, trn)
     row = [_sweep_inputs(dev, rng, n, 4 * n, 40 * n, 512, large=False)
            for n in (300, 4000)]
     checks += [check_sweep(row[0]), check_sweep(row[1]),
@@ -2330,14 +2466,14 @@ def main(argv=None):
     print(f"native library built in {native_build_s:.2f}s", flush=True)
     lap("build")
 
+    trn = synth_ml20m(seed=0)
+    lap("datagen")
     checks = [] if args.only in ("dist", "native") \
-        else kernel_checks(dev, args.profile)
+        else kernel_checks(dev, trn, args.profile)
     lap("kernels")
     if args.only == "kernels":
         return 0
 
-    trn = synth_ml20m(seed=0)
-    lap("datagen")
     wrappers = launch_wrappers()
     results = {}
     drives = (("synth", lambda: run_synth(dev)),

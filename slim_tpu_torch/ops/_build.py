@@ -35,7 +35,7 @@ _F = ctypes.c_float
 
 # C entry points and their argument types (see the csrc/ sources)
 _SIGNATURES = {
-    "slim_densify": [_P, _P, _P, _I, _I, _I, _I, _P, _LL, _P],
+    "slim_densify": [_P] * 4 + [_LL] + [_I] * 5 + [_P, _LL, _I, _I, _P],
     "slim_pack": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "slim_cd_sweep": [_P] * 12 + [_I] * 3 + [_P] * 6,
     "slim_cd_sweep_large": [_P] * 12 + [_I] * 3 + [_P] * 7,

@@ -26,7 +26,10 @@ import torch
 from .. import native
 from ..types import CSR
 from ..utils import resolve_device
-from .densify import RT, WCAP, densify_runs, pow2_width
+from .densify import RT, densify_runs
+
+# the row-block rule's cap on a block's entry width (_row_block)
+WCAP = 4096
 
 
 def _round_up(x: int, m: int) -> int:
@@ -61,9 +64,15 @@ def _is_binary(vals: np.ndarray) -> bool:
     return bool(vals.size == 0 or (vals[0] == 1.0 and np.all(vals == 1.0)))
 
 
+def pow2_width(n: int) -> int:
+    return max(32, 1 << max(int(n) - 1, 0).bit_length())
+
+
 def _row_block(w: int) -> int:
-    """Rows per block for entry width ``w``: bound the gathered (W, Rb) id
-    buffer to ~32 MB while keeping the contraction batched."""
+    """Rows per block for entry width ``w`` (the pow2 ceiling of the
+    block's longest row, capped at WCAP): w x rows stays within 2^23, so
+    blocks of long rows are narrow and short rows are taken 8,192 at a
+    time (the JAX package's ``_pallas_row_block`` rule)."""
     for rb in (8192, 4096, 2048, 1024, 512, 256):
         if w * rb <= (1 << 23):
             return rb
@@ -76,9 +85,8 @@ def gram_partial(mat: CSR, n: int, dev, col_map=None, cols=None):
     counts), float32 otherwise; (n, n), ``n`` a multiple of 128.
 
     Rows are taken in nnz-sorted order (G is invariant to row order) in
-    blocks densified by :func:`densify_runs`: each slab's entry width is
-    the pow2 ceiling of its longest row, and rows wider than the densify
-    window WCAP take several shifted kernel passes, so every entry goes
+    blocks sized by :func:`_row_block`, each densified by one
+    :func:`densify_runs` call into a fresh block, so every entry goes
     through the kernel.  ``col_map`` (an int32 tensor on ``dev``, one entry
     per column of ``mat``) moves column c to position col_map[c]; positions
     >= n drop, so a map onto a set S gives the compact Gram G[S, S].
@@ -113,7 +121,7 @@ def gram_partial(mat: CSR, n: int, dev, col_map=None, cols=None):
         rs[:take] = mat.indptr[rows]
         rl[:take] = row_nnz[rows]
         blkT = densify_runs(idx_d, val_d, rs, rl, n, None,
-                            torch.zeros((n, R), dtype=out_dt, device=dev))
+                            torch.empty((n, R), dtype=out_dt, device=dev))
         right = blkT[c0:c1].t()
         if ones:
             acc += torch._int_mm(blkT, right)

@@ -391,13 +391,14 @@ def _screen_flags(R: _Ranked, jc, chunk: int, l1r: float, fslim_nnbrs: int,
     aty = torch.zeros((npad, chunk), dtype=torch.float32, device=dev)
     row_nnz = np.diff(part.indptr)
     for r0, r1 in _steps(row_nnz, max(SCREEN_STEP_FLOATS // chunk, 1)):
-        yT = densify_runs(ids, vals, part.indptr[r0:r1], row_nnz[r0:r1],
-                          chunk, chunk, torch.zeros((chunk, r1 - r0),
-                                                    device=dev))
+        y = densify_runs(ids, vals, part.indptr[r0:r1], row_nnz[r0:r1],
+                         chunk, chunk, torch.empty((r1 - r0, chunk),
+                                                   device=dev),
+                         row_major=True)
         s, e = int(part.indptr[r0]), int(part.indptr[r1])
         loc = torch.from_numpy(np.repeat(np.arange(r1 - r0),
                                          row_nnz[r0:r1])).to(dev)
-        aty.index_add_(0, R.cols[s:e], R.vals[s:e, None] * yT.T[loc])
+        aty.index_add_(0, R.cols[s:e], R.vals[s:e, None] * y[loc])
     if fslim_nnbrs > 0:
         comm.all_reduce(aty)
         return fslim_active_mask(aty.T, R.diag, jc, npad, fslim_nnbrs,

@@ -79,9 +79,13 @@ NATIVE_PREDICT_ALPHA = 0.75
 # 8-core host by chip_smoke phase 14, where the card serves more users per
 # second at every catalogue measured: the host wins only a call small
 # enough for the card's costs per call to outweigh the whole host loop.
+# The per-cell cost sits mid-way (on a log scale) in the range that routes
+# every phase-14 call within its 1.25x check since the model densify
+# became one row-major launch (5e-12 to 2e-11; 5e-11 sent the ML-20M FSLIM
+# model's first 600 users to the host at 2.1x the card's time).
 HOST_S_PER_UPDATE = 5e-10
 CARD_S_PER_CALL = 1.25e-3
-CARD_S_PER_CELL = 5e-11
+CARD_S_PER_CELL = 1e-11
 CARD_S_PER_SCORE = 4e-14
 
 logger = logging.getLogger("slim_tpu_torch")
@@ -222,24 +226,21 @@ def _wval_bf16() -> bool:
 
 def densify_model(model: CSR, npad: int | None = None, device=None):
     """Dense (npad, npad) float32 model W on ``device``: the CSR rows are
-    densified as runs into the transposed block (M[c, r] = W[r, c]), one
-    transpose at the end.  Duplicate (row, col) entries accumulate."""
+    densified as runs straight into W's rows (the row-major layout, one
+    kernel launch).  Duplicate (row, col) entries accumulate."""
     dev = resolve_device(device)
     n = max(model.nrows, model.ncols)
     npad = npad if npad is not None else bucket_npad(n)
-    M = torch.zeros((npad, npad), dtype=torch.float32, device=dev)
-    if model.nnz:
-        nr = min(model.nrows, npad)
-        rs = np.zeros(npad, np.int64)
-        rl = np.zeros(npad, np.int64)
-        rs[:nr] = model.indptr[:nr]
-        rl[:nr] = np.diff(model.indptr)[:nr]
-        idx = model.dev_put("idx32", lambda: model.indices.astype(np.int32),
-                            dev)
-        val = model.dev_put("val32", lambda: model.values().astype(
-            np.float32), dev)
-        densify_runs(idx, val, rs, rl, npad, npad, M)
-    return M.T.contiguous()
+    nr = min(model.nrows, npad)
+    rs = np.zeros(npad, np.int64)
+    rl = np.zeros(npad, np.int64)
+    rs[:nr] = model.indptr[:nr]
+    rl[:nr] = np.diff(model.indptr)[:nr]
+    idx = model.dev_put("idx32", lambda: model.indices.astype(np.int32), dev)
+    val = model.dev_put("val32", lambda: model.values().astype(np.float32),
+                        dev)
+    return densify_runs(idx, val, rs, rl, npad, npad, torch.empty(
+        (npad, npad), dtype=torch.float32, device=dev), row_major=True)
 
 
 class DeviceModelPack:
@@ -278,7 +279,7 @@ class DeviceModelPack:
             dev = self.device
             p_pad = torch.from_numpy(self.p_pad).to(dev)
             idx_item = p_pad[self.idx.long()].to(torch.int32)
-            M = torch.zeros((self.npad, self.npad), dtype=torch.float32,
+            M = torch.empty((self.npad, self.npad), dtype=torch.float32,
                             device=dev)
             densify_runs(idx_item, self.vals, self.run_starts, self.run_lens,
                          self.npad, self.n, M)
@@ -530,14 +531,14 @@ class _Route:
             users = order[u0:u0 + ub]
             rs, rl = hist.indptr[users], row_nnz[users]
             if self.precision == "highest":
-                hdT = densify_runs(idx, val, rs, rl, npad, n, torch.zeros(
+                hdT = densify_runs(idx, val, rs, rl, npad, n, torch.empty(
                     (npad, len(users)), dtype=torch.float32, device=dev))
                 sc = hdT.T @ self.W                        # (users, npad)
             else:
                 hdT, sc = self._bf16_block(idx, val, rs, rl, straight)
             if mask:
                 maskT = hdT > 0 if ones else densify_runs(
-                    idx, None, rs, rl, npad, n, torch.zeros(
+                    idx, None, rs, rl, npad, n, torch.empty(
                         (npad, len(users)), dtype=torch.int8,
                         device=dev)) > 0
                 sc.masked_fill_(maskT.T, float("-inf"))
@@ -551,12 +552,12 @@ class _Route:
         not exact in bfloat16 (``straight`` False)."""
         n, npad, dev = self.n, self.npad, self.dev
         K = self.W.shape[0] // npad
-        H = torch.zeros((K * npad, len(rl)), dtype=torch.bfloat16,
+        H = torch.empty((K * npad, len(rl)), dtype=torch.bfloat16,
                         device=dev)
         if straight:
             hdT = densify_runs(idx, val, rs, rl, npad, n, H[:npad])
         else:
-            hdT = densify_runs(idx, val, rs, rl, npad, n, torch.zeros(
+            hdT = densify_runs(idx, val, rs, rl, npad, n, torch.empty(
                 (npad, len(rl)), dtype=torch.float32, device=dev))
             H[:npad].copy_(hdT)
         if K == 2:

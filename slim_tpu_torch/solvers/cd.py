@@ -117,13 +117,15 @@ def warm_runs(imodel: CSR, warm_pack, p_pad, posmap_pad, n: int, dev):
 
 def warm_x0(runs, r0: int, nJ: int, B: int, n: int, npad: int):
     """(B, npad) float32 x0 of the block of target ranks [r0, r0 + nJ),
-    densified on the device through the densify kernel; rank-padding
-    coordinates (>= n) are dropped."""
+    densified on the device through the densify kernel straight into its
+    rows (row-major); rank-padding coordinates (>= n) are dropped and the
+    rows past nJ are zero."""
     ids, vals, rs, rl = runs
-    outT = torch.zeros((npad, B), dtype=torch.float32, device=ids.device)
+    x0 = torch.empty((B, npad), dtype=torch.float32, device=ids.device)
     densify_runs(ids, vals, rs[r0:r0 + nJ], rl[r0:r0 + nJ], npad, n,
-                 outT[:, :nJ])
-    return outT.T.contiguous()
+                 x0[:nJ], row_major=True)
+    x0[nJ:].zero_()
+    return x0
 
 
 class _PackAccum:
@@ -416,10 +418,11 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                             "rsd: %.2e obj: %.2e", j, int(nnz_col[j]),
                             int(rstatus_h[b]), int(niters_h[b]), int(c[b]),
                             rnorm_h[b], obj_h[b])
+        rec = _Block(p[cp[keep]], p[r0 + rows[keep]], va[keep],
+                     float(rnorm_h.sum()), float(obj_h.sum()),
+                     int(niters_h.sum()), int(niters_h.max()) if nJ else 0)
         clock.lap("harvest")
-        return _Block(p[cp[keep]], p[r0 + rows[keep]], va[keep],
-                      float(rnorm_h.sum()), float(obj_h.sum()),
-                      int(niters_h.sum()), int(niters_h.max()) if nJ else 0)
+        return rec
 
     blocks = []
     for blk in mine:

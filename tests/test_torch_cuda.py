@@ -647,6 +647,96 @@ def test_densify_bf16_matches_plain(dev, rng, valued):
     assert wide[:, :4].abs().sum() == 0 and wide[:, 4 + R:].abs().sum() == 0
 
 
+def _csr_runs(rng, R, npad, long_run=0):
+    """Runs of a flat CSR for densify_runs: 0-60 ids each, below npad + 40
+    (ids >= npad and >= n_valid drop), unordered, every third run with
+    its first id twice; integer values 1-5; with ``long_run`` run 1 has
+    that many entries (ids repeating)."""
+    lens = rng.integers(0, 61, R)
+    lens[3] = 0
+    if long_run:
+        lens[1] = long_run
+    idx = rng.integers(0, npad + 40, int(lens.sum())).astype(np.int32)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    for r in range(0, R, 3):
+        if lens[r] > 1:
+            idx[starts[r] + 1] = idx[starts[r]]
+    vals = rng.integers(1, 6, idx.size).astype(np.float32)
+    return idx, vals, starts, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("row_major", [False, True])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_densify_runs_kernel_matches_plain(dev, rng, dtype, row_major,
+                                           accumulate):
+    """densify_runs's kernel against densify_runs_plain, exact on integer
+    values, at a ragged shape (R 300, npad 9216 off the tile multiples, a
+    run of 5,000 entries), into a slice of a wider block (a column slice
+    transposed, a row slice row-major) that is either overwritten or
+    accumulated into (from values 0-2); the columns / rows around it stay
+    as they were.  One launch per call, counted on densify_bf16 for a
+    bfloat16 block and on densify otherwise."""
+    npad, R, n_valid = 9216, 300, 9000
+    idx, vals, starts, lens = _csr_runs(rng, R, npad, long_run=5000)
+    val = None if dtype == torch.int8 else torch.from_numpy(vals).to(dev)
+    idx_d = torch.from_numpy(idx).to(dev)
+    shape = (R + 11, npad) if row_major else (npad, R + 11)
+    base = torch.from_numpy(rng.integers(0, 3, shape).astype(
+        np.float32)).to(dev).to(dtype)
+    wide = base.clone()
+    out = wide[5:5 + R] if row_major else wide[:, 5:5 + R]
+    ref = (base[5:5 + R] if row_major else base[:, 5:5 + R]).clone()
+    counter = D.densify_bf16 if dtype == torch.bfloat16 else D.densify
+    n0 = counter.launches
+    D.densify_runs(idx_d, val, starts, lens, npad, n_valid, out,
+                   accumulate=accumulate, row_major=row_major)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    D.densify_runs_plain(idx_d, val, starts, lens, npad, n_valid, ref,
+                         accumulate=accumulate, row_major=row_major)
+    assert counter.launches == n0 + 1
+    assert torch.equal(out, ref) and ref.float().max() > 2
+    keep = torch.ones(shape[0] if row_major else shape[1], dtype=torch.bool)
+    keep[5:5 + R] = False
+    rest = wide[keep] if row_major else wide[:, keep]
+    assert torch.equal(rest, base[keep] if row_major else base[:, keep])
+
+
+@pytest.mark.parametrize("entry", ["runs", "layout"])
+def test_densify_bf16_sums_above_256(dev, rng, entry):
+    """The kernel's bfloat16 output sums in float32 and rounds once: a
+    column of 256, 1 and 1 gives 258 (per-entry rounding gave 256), and
+    integer sums of up to ~700 equal the plain version's, on the CSR
+    runs and on the TPU kernel's (W, R) layout."""
+    npad, W, R = 4096, 128, 512
+    ids = rng.integers(0, 8, (W, R)).astype(np.int32)      # many repeats
+    vals = rng.integers(1, 40, (W, R)).astype(np.float32)
+    ids[:3, 7], vals[:3, 7] = 5, (256.0, 1.0, 1.0)
+    ids[3:, 7] = npad
+    if entry == "layout":
+        idsT = torch.from_numpy(ids).to(dev)
+        valsT = torch.from_numpy(vals).to(dev)
+        wmax = D.densify_meta(idsT, npad)
+        got = D.densify_bf16(idsT, valsT, wmax, npad)
+        ref = D.densify_plain(idsT, valsT, wmax, npad, torch.zeros(
+            (npad, R), dtype=torch.bfloat16, device=dev))
+    else:
+        lens = (ids < npad).sum(axis=0)
+        keep = ids.T < npad
+        args = (torch.from_numpy(ids.T[keep].copy()).to(dev),
+                torch.from_numpy(vals.T[keep].copy()).to(dev),
+                np.concatenate([[0], np.cumsum(lens)[:-1]]), lens, npad,
+                None)
+        got = D.densify_runs(*args, torch.empty(
+            (npad, R), dtype=torch.bfloat16, device=dev))
+        ref = D.densify_runs_plain(*args, torch.empty(
+            (npad, R), dtype=torch.bfloat16, device=dev))
+    assert got[5, 7].item() == 258.0
+    assert torch.equal(got, ref) and ref.float().max() > 512
+
+
 @pytest.mark.parametrize("kind", ["binary", "ratings", "fractional"])
 def test_high_precision_on_card_matches_highest(dev, rng, kind):
     """Above npad 8192 a call that names no precision scores at "high"

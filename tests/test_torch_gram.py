@@ -11,7 +11,6 @@ from slim_tpu.ops import cd_kernel as jcd
 from slim_tpu.ops.gram import gram_host as jax_gram_host
 from slim_tpu_torch import SlimConfig, learn
 from slim_tpu_torch.ops import cd_kernel as tcd
-from slim_tpu_torch.ops import densify as tdensify
 from slim_tpu_torch.ops import gram as tgram
 from slim_tpu_torch.types import CSR
 from slim_tpu_torch.utils import resolve_device
@@ -47,15 +46,16 @@ def test_gram_device_matches_host(rng, implicit):
 
 @pytest.mark.parametrize("implicit", [True, False])
 def test_gram_long_row_residual(rng, monkeypatch, implicit):
-    """Rows wider than the densify window (WCAP) take several shifted
-    kernel passes; totals match the host exactly."""
+    """Rows far wider than the rest (a 64-nnz power row) densify in one
+    call with them, in blocks sized by a width cap (WCAP) lowered below
+    the long rows; totals match the host exactly."""
     dense = (rng.random((40, 64)) < 0.1) * rng.integers(1, 5, (40, 64))
     dense[3, :] = 2            # a 64-nnz power row
     dense[17, :50] = 1
     mat = CSR.from_scipy(sp.csr_matrix(dense.astype(np.float32)))
     if implicit:
         mat = mat.binarize()
-    monkeypatch.setattr(tdensify, "WCAP", 32)
+    monkeypatch.setattr(tgram, "WCAP", 32)
     got = tgram.gram_device(mat, pad_to=128, device="cpu").numpy()
     np.testing.assert_array_equal(got, jax_gram_host(mat, pad_to=128))
 
