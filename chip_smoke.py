@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only kernels   # build + kernel-vs-plain checks
     python3 chip_smoke.py --only dist      # phase 4's learn + phase 13
     python3 chip_smoke.py --only native    # phases 3, 3b, 4, 7 + phase 14
+    python3 chip_smoke.py --only cli       # the three programs (phase cli)
     python3 chip_smoke.py --profile chiprun_out   # one sweep and phase 4
                                                   # under torch.profiler
 
@@ -51,6 +52,24 @@ Phases (any failure exits non-zero, and no result line is printed):
      solves on the whole-array sweep; predict top-10 for every user.
      Objective and model nnz against the JAX package's result on the same
      matrix; the first 256 users' ids against the CPU path.
+  cli. the three programs, slim_learn, slim_predict and slim_mselect, in
+     this process through their main(argv) with no -device (the card), on
+     csr files at the ML-1M shape: the training matrix with a repeated
+     event in every 10th user (at a random position of its row: unsorted,
+     with a duplicate), a held-out draw as the test file.  The reader's
+     matrix equals scipy's sum over the same triplets (the oracle);
+     slim_learn (l1r = l2r = 1, ML1M_CFG) within 1e-6 rel of api.learn's
+     objective on the oracle, model nnz equal; slim_predict's top-10 on
+     its model file against predict_topn of the API's model on the oracle
+     (``check_agree``), its printed HR / ARHR those of its own lists and
+     of the API's lists but at the users whose lists differ; slim_mselect
+     over MSELECT_POINTS: the best pair and its HR those of mselect_pairs
+     on the oracles.  The programs' results are read from their own calls
+     (``recording``) and their printed lines checked against them.  Only
+     the programs run while the launch counters count (``run_cli``); the
+     API references run after the counts are read (``check_cli``).  One
+     ``cli:`` line: read s (the file with repeats, and without), each
+     program's s, objective, nnz, HR, ARHR, and the card.
   3c. FSLIM (nnbrs 50, cos, the JAX package's golden settings) at the
      ML-1M shape, at full width and with compact_threshold 2048 (every
      block on its FSLIM union): both against the JAX package's objective
@@ -174,7 +193,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      the native route was added; phase 4's top-N is unpinned and must stay
      on the card, the guide's unpinned calls take the route the router
      picks, and the mesh grid of phase 13 pins its own device route.
-  15. the kernels line.  Phases 3-14 (3b, 3c, 10b and guide too) are each
+  15. the kernels line.  Phases 3-14 (3b, cli, 3c, 10b and guide too) are each
      driven with every launch counter set to 0 just before and read just
      after (in the ranks, summed over them, for phase 13's paths; the
      guide's section-9 ranks are printed apart); each path
@@ -303,6 +322,10 @@ GUIDE_BEST = (0.1, 0.5, 0.1, 0.5)
 # histories densified into bfloat16 (densify_bf16)
 PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
                 "ml1m": ("densify", "cd_sweep", "pack"),
+                # the three programs at the ML-1M shape: the learns' Grams
+                # and the dense predicts on densify, their blocks on the
+                # whole-array sweep (npad 4096), harvests on pack
+                "cli": ("densify", "cd_sweep", "pack"),
                 "ml1m_fslim": ("densify", "cd_sweep", "pack"),
                 "ml20m": ("densify", "densify_bf16", "cd_sweep_large",
                           "pack"),
@@ -996,6 +1019,226 @@ def run_ml1m(dev):
           f"ML-1M objective {stats['loss']}")
     check(abs(stats["nnz"] - ML1M_NNZ) <= 0.01 * ML1M_NNZ,
           f"ML-1M model nnz {stats['nnz']}")
+    return out
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Each call of ``module.name`` while the block runs, as (args,
+    kwargs, result), the function itself unchanged; restored after."""
+    fn = getattr(module, name)
+    calls = []
+
+    def record(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def captured_stdout():
+    """What the block prints, in a StringIO.  The CLIs point the root
+    logger at the stream they print to, so its handlers and level are
+    restored after."""
+    import io
+    import logging
+
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield buf
+    finally:
+        root.handlers[:] = handlers
+        root.setLevel(level)
+
+
+def cli_files(tmp, shape, seed=0):
+    """Phase "cli"'s input files in ``tmp``: the ML-1M-shaped training
+    matrix as a csr file with a repeated event in every 10th user (a copy
+    of one of its items at a random position of its row, so the row is
+    unsorted and has a duplicate), the same matrix without the repeats,
+    and a held-out draw as the test file.  Returns the paths and the
+    oracles: scipy's sum over the same triplets (independent of the
+    port's reader), and the test matrix."""
+    import scipy.sparse as sp
+
+    from slim_tpu_torch.datagen import synth_implicit
+    from slim_tpu_torch.io.readers import write_csr
+    from slim_tpu_torch.types import CSR
+
+    trn = synth_implicit(*shape, seed=seed)
+    tst = synth_implicit(shape[0], shape[1], shape[0], seed=1)
+    rng = np.random.default_rng(seed)
+    rows = np.split(trn.indices, trn.indptr[1:-1])
+    for u in range(0, trn.nrows, 10):
+        r = rows[u]
+        if len(r):
+            rows[u] = np.insert(r, rng.integers(len(r) + 1),
+                                r[rng.integers(len(r))])
+    lens = np.array([len(r) for r in rows], np.int64)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    indices = np.concatenate(rows).astype(np.int32)
+    ones = np.ones(len(indices), np.float32)
+    paths = {k: os.path.join(tmp, f"{k}.csr")
+             for k in ("repeats", "canonical", "test")}
+    write_csr(CSR.from_arrays(trn.nrows, trn.ncols, indptr, indices, ones),
+              paths["repeats"])
+    write_csr(CSR.from_arrays(trn.nrows, trn.ncols, trn.indptr, trn.indices,
+                              np.ones(trn.nnz, np.float32)),
+              paths["canonical"])
+    tst = CSR.from_arrays(tst.nrows, int(tst.indices.max()) + 1, tst.indptr,
+                          tst.indices, np.ones(tst.nnz, np.float32))
+    write_csr(tst, paths["test"])
+    users = np.repeat(np.arange(trn.nrows), lens)
+    oracle = sp.coo_matrix((ones, (users, indices)),
+                           shape=(trn.nrows, int(indices.max()) + 1)).tocsr()
+    oracle.sum_duplicates()
+    return paths, CSR.from_scipy(oracle), tst, int(len(indices) - trn.nnz)
+
+
+def run_cli(dev):
+    """Phase "cli": the three programs, in this process through their
+    ``main(argv)`` with no ``-device`` (the default route, the card), on
+    csr files at MovieLens-1M's shape whose every 10th user repeats an
+    event.  Only the programs run here, so the path's launch counts are
+    theirs; ``check_cli`` holds them to the API after the counts are
+    read (the module docstring)."""
+    import tempfile
+
+    from slim_tpu_torch import predict as P
+    from slim_tpu_torch.cli import slim_learn, slim_mselect, slim_predict
+    from slim_tpu_torch.io.readers import read_matrix
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="slim_cli_") as tmp:
+        paths, trn, tst, repeats = cli_files(tmp, ML1M_SHAPE)
+        # the reader alone: the file with repeats is scipy's oracle
+        t_read = {}
+        for k in ("canonical", "repeats"):
+            read, t_read[k] = _timed(lambda: read_matrix(paths[k], fmt="csr"))
+        check(read == trn and read.shape == trn.shape,
+              "cli: the csr reader's matrix is not scipy's sum of the "
+              "file's triplets")
+        mdl = os.path.join(tmp, "cli.model")
+        out_f = os.path.join(tmp, "cli.topn")
+        l12 = os.path.join(tmp, "l12")
+        with open(l12, "w") as fh:
+            fh.writelines(f"{a} {b}\n" for a, b in MSELECT_POINTS)
+        c0 = _launch_counts()
+        os.chdir(tmp)              # slim_mselect writes its models here
+        try:
+            with captured_stdout() as text, \
+                    recording(slim_learn, "learn") as learns, \
+                    recording(slim_predict, "predict_topn") as preds, \
+                    recording(slim_mselect, "mselect_pairs") as sels:
+                learn_s = _timed(lambda: check(slim_learn.main([
+                    "-l1r=1.0", "-l2r=1.0",
+                    f"-optTol={ML1M_CFG['optTol']}",
+                    f"-niters={ML1M_CFG['maxniters']}",
+                    f"-blocksize={ML1M_CFG['block_size']}",
+                    paths["repeats"], mdl]) == 0, "slim_learn failed"))[1]
+                predict_s = _timed(lambda: check(slim_predict.main([
+                    f"-outfile={out_f}", mdl, paths["repeats"],
+                    paths["test"]]) == 0, "slim_predict failed"))[1]
+                route = P.last_route
+                mselect_s = _timed(lambda: check(slim_mselect.main([
+                    paths["repeats"], paths["test"], l12]) == 0,
+                    "slim_mselect failed"))[1]
+        finally:
+            os.chdir(cwd)
+        printed = text.getvalue()
+        cli_launches = {k: v for k, v in _since(c0).items() if v}
+        with open(out_f) as fh:
+            listed = [line.split()[0::2] for line in fh]
+    print(printed, end="", flush=True)
+    check(len(learns) == len(preds) == len(sels) == 1,
+          f"cli: {len(learns)} learns, {len(preds)} predicts, {len(sels)} "
+          "model selections recorded")
+    return dict(trn=trn, tst=tst, repeats=repeats, t_read=t_read,
+                learn_s=learn_s, predict_s=predict_s, mselect_s=mselect_s,
+                printed=printed, listed=listed, route=route, learn=learns[0],
+                predict=preds[0], mselect=sels[0], cli_launches=cli_launches)
+
+
+def check_cli(dev, run):
+    """Phase "cli"'s gates, on what ``run_cli`` recorded: each program
+    held to the API on scipy's oracle of the same triplets, and its
+    printed lines to what it computed.  Prints the ``cli:`` line."""
+    from slim_tpu_torch import SlimConfig, learn
+    from slim_tpu_torch import determine_head_tail, evaluate_topn
+    from slim_tpu_torch import predict as P
+    from slim_tpu_torch.mselect import mselect_pairs
+
+    trn, tst, printed, route = (run["trn"], run["tst"], run["printed"],
+                                run["route"])
+
+    # slim_learn against api.learn on the oracle: same data and seed
+    _, stats = run["learn"][2]
+    model, ref = learn(trn, SlimConfig(l1r=1.0, l2r=1.0, **ML1M_CFG),
+                       device=dev)
+    check(f"model nnz: {stats['nnz']}  loss: {stats['loss']:.5e}"
+          in printed, "slim_learn printed another result than it learned")
+    check(abs(stats["loss"] - ref["loss"]) <= 1e-6 * abs(ref["loss"])
+          and stats["nnz"] == ref["nnz"],
+          f"cli learn {stats['loss']} / {stats['nnz']} vs api.learn "
+          f"{ref['loss']} / {ref['nnz']}")
+
+    # slim_predict's lists (the model from its file) against the API's
+    (cli_model, *_), _, (ids, sc, counts) = run["predict"]
+    check(run["listed"] == [[str(i) for i in row[:c]] for row, c in zip(ids, counts)],
+          "slim_predict's outfile holds other lists than it scored")
+    api = P.predict_topn(model, trn, nrcmds=10, device=dev)
+    check(P.last_route == route, f"cli predict on {route}, the API's on "
+          f"{P.last_route}")
+    agree = check_agree("cli predict", (ids, sc, counts), api, model=model,
+                        hist=trn)
+    fmarker = determine_head_tail(trn, max(trn.ncols, tst.ncols,
+                                           cli_model.ncols))
+    ev = evaluate_topn(ids, counts, tst, fmarker)
+    ev_api = evaluate_topn(api[0], api[2], tst, fmarker)
+    check(f"hr: {ev.hr:.4f} hr_head: {ev.hr_head:.4f} "
+          f"hr_tail: {ev.hr_tail:.4f} arhr: {ev.arhr:.4f}" in printed,
+          "slim_predict printed another HR / ARHR than its lists give")
+    # a near tie swapped at the list's end moves at most one hit a user
+    slack = ((ids != api[0]).any(axis=1).sum()) / max(ev.nvalid, 1)
+    check(abs(ev.hr - ev_api.hr) <= slack
+          and abs(ev.arhr - ev_api.arhr) <= slack,
+          f"cli HR / ARHR {ev.hr} / {ev.arhr} vs the API's {ev_api.hr} / "
+          f"{ev_api.arhr}")
+
+    # slim_mselect against mselect_pairs on the oracles
+    got = run["mselect"][2]
+    want = mselect_pairs(trn, tst, SlimConfig(optTol=ML1M_CFG["optTol"],
+                                              maxniters=ML1M_CFG["maxniters"]),
+                         MSELECT_POINTS, device=dev)
+    best = (got["bestl1HR"], got["bestl2HR"])
+    best_hr = max(r["hr"] for r in got["results"])
+    check(best == (want["bestl1HR"], want["bestl2HR"])
+          and abs(best_hr - max(r["hr"] for r in want["results"])) <= 1e-6,
+          f"cli mselect best {best} (HR {best_hr}) vs the API's "
+          f"{(want['bestl1HR'], want['bestl2HR'])}")
+    check(f"The selected hyperparameters are l1r: {best[0]:.2f} "
+          f"l2r: {best[1]:.2f}" in printed,
+          "slim_mselect printed another best point than it chose")
+    out = dict(nrows=trn.nrows, ncols=trn.ncols, nnz=trn.nnz,
+               repeated_events=run["repeats"], read_s=run["t_read"]["repeats"],
+               read_canonical_s=run["t_read"]["canonical"],
+               learn_s=run["learn_s"], predict_s=run["predict_s"],
+               mselect_s=run["mselect_s"], objective=stats["loss"],
+               objective_api=ref["loss"], model_nnz=stats["nnz"],
+               predict_route=route, hr=ev.hr, arhr=ev.arhr, hr_api=ev_api.hr,
+               arhr_api=ev_api.arhr, mselect_best=best,
+               mselect_best_hr=best_hr, cli_launches=run["cli_launches"],
+               **agree, card=card_line())
+    print("cli:", json.dumps(out))
     return out
 
 
@@ -2423,12 +2666,14 @@ def kernel_checks(dev, trn, profile=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "dist", "native", "all"],
+    ap.add_argument("--only", choices=["kernels", "dist", "native", "cli",
+                                       "all"],
                     default="all",
                     help="kernels: stop after the kernel checks; dist: the "
                          "ML-20M learn and the distributed paths only; "
                          "native: the paths whose models phase 14 serves "
-                         "(synth, ML-1M, ML-20M, ML-20M FSLIM) and phase 14")
+                         "(synth, ML-1M, ML-20M, ML-20M FSLIM) and phase 14; "
+                         "cli: the three programs only (phase cli)")
     ap.add_argument("--profile", metavar="DIR",
                     help="run one sweep and the ML-20M phase under "
                          "torch.profiler and write their per-kernel device "
@@ -2466,9 +2711,9 @@ def main(argv=None):
     print(f"native library built in {native_build_s:.2f}s", flush=True)
     lap("build")
 
-    trn = synth_ml20m(seed=0)
+    trn = None if args.only == "cli" else synth_ml20m(seed=0)
     lap("datagen")
-    checks = [] if args.only in ("dist", "native") \
+    checks = [] if args.only in ("dist", "native", "cli") \
         else kernel_checks(dev, trn, args.profile)
     lap("kernels")
     if args.only == "kernels":
@@ -2478,6 +2723,7 @@ def main(argv=None):
     results = {}
     drives = (("synth", lambda: run_synth(dev)),
               ("ml1m", lambda: run_ml1m(dev)),
+              ("cli", lambda: run_cli(dev)),
               ("ml1m_fslim", lambda: run_ml1m_fslim(dev)),
               ("ml20m", lambda: run_ml20m(dev, trn, args.profile)),
               ("mselect", lambda: run_mselect(dev, trn,
@@ -2500,6 +2746,8 @@ def main(argv=None):
     elif args.only == "native":
         drives = tuple(d for d in drives if d[0] in (
             "synth", "ml1m", "ml20m", "fslim", "native"))
+    elif args.only == "cli":
+        drives = tuple(d for d in drives if d[0] == "cli")
     by_path = {}
 
     def path_launched(path, counts):
@@ -2511,13 +2759,17 @@ def main(argv=None):
                  if v and k not in PATH_KERNELS[path]]
         check(not stray, f"{path} path launched {stray}: {counts}")
 
+    # a path whose references run the API: held to them after its counts
+    gates = {"cli": lambda run: check_cli(dev, run)}
     for path, drive in drives:
         for w in wrappers.values():
             w.launches = 0
         results[path] = drive()
         path_launched(path, {k: w.launches for k, w in wrappers.items()})
+        if path in gates:
+            results[path] = gates[path](results[path])
         lap(path)
-    if args.only == "native":
+    if args.only in ("native", "cli"):
         return 0
     for path, (rec, counts) in run_dist(trn, results["ml20m"]).items():
         results[path] = rec

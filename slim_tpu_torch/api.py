@@ -371,7 +371,11 @@ class SLIM:
         self._W_dev = None
 
     def to_csr(self, returnmap: bool = False):
-        """The model as a scipy csr_matrix (and the item labels)."""
+        """The model as a scipy csr_matrix (and the item labels) that the
+        caller owns: writable copies of the model's arrays, which stay
+        read-only (``CSR``), so in-place scipy methods (``eliminate_zeros``,
+        ``data *= 2``) work on it as on the JAX package's.  The copy is
+        O(nnz): about 0.3 GB at an ML-20M model's 34.5M entries."""
         if self.model is None:
             raise RuntimeError("Not exist a model to export.")
         csr = self.model.to_scipy()

@@ -38,6 +38,15 @@ class CSR:
     norms) can be stale from one.  The views share the caller's memory,
     so the caller must not write through its own references after
     building a CSR either; a changed matrix is a new CSR.
+
+    What the methods hand out follows from that.  ``binarize`` and
+    ``with_ncols`` return CSRs on the same read-only arrays (nothing
+    changes in them).  ``sort_indices``, a ``sum_duplicate_entries`` that
+    finds a repeat, and ``transpose`` build new arrays: scipy sorts and
+    sums in place, so it works on copies, never on the views.
+    ``to_scipy()`` returns a matrix on copies the caller owns, on which
+    every scipy method works.  ``values()`` is the data view, or fresh
+    ones for an implicit matrix.
     """
 
     nrows: int
@@ -200,7 +209,8 @@ class CSR:
         return self.with_ncols(max(ncols, self.ncols))
 
     def sort_indices(self) -> "CSR":
-        """Sort column indices within each row (reference setup.c:19-94)."""
+        """Sort column indices within each row (reference setup.c:19-94):
+        scipy's in-place sort, on copies of the arrays."""
         m = self.to_scipy()
         m.sort_indices()
         return CSR.from_arrays(self.nrows, self.ncols, m.indptr, m.indices,
@@ -211,7 +221,9 @@ class CSR:
         keeping both.  The reference's scalar += loops accumulate
         duplicates naturally; the device scatter kernels assume unique
         coordinates per row, so file-read matrices are canonicalized at
-        the boundary.  Returns self unchanged when already canonical."""
+        the boundary.  Returns self unchanged, without a copy, when no
+        (row, col) repeats; else scipy's in-place sum on copies of the
+        arrays (the JAX package's arrays and values)."""
         rows = np.repeat(np.arange(self.nrows, dtype=np.int64),
                          np.diff(self.indptr).astype(np.int64))
         order = np.lexsort((self.indices, rows))
@@ -264,10 +276,17 @@ class CSR:
         return self._cnorms
 
     def to_scipy(self):
+        """The matrix as a scipy ``csr_matrix``, rows in the order they
+        stand (unsorted or with repeats, as this CSR is), on copies of the
+        arrays that the caller owns (O(nnz)): every scipy method works on
+        it, in-place ones such as ``sum_duplicates``, ``sort_indices``,
+        ``eliminate_zeros`` or ``data *= 2`` included, and nothing reaches
+        this CSR's read-only arrays."""
         import scipy.sparse as sp
 
         return sp.csr_matrix(
-            (self.values(), self.indices, self.indptr), shape=(self.nrows, self.ncols))
+            tuple(np.array(a) for a in (self.values(), self.indices, self.indptr)),
+            shape=(self.nrows, self.ncols))
 
     def to_dense(self, dtype=np.float32) -> np.ndarray:
         out = np.zeros((self.nrows, self.ncols), dtype=dtype)
