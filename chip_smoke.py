@@ -87,10 +87,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      against the scipy oracle; "default" within 2^-7 rel (its differing
      ids printed, not gated: the JAX package's own trade).  Last, the
      model densified row-major (``predict.densify_model``) against the
-     transposed densify plus a transpose copy, in turns, equal.  With
-     --profile DIR this phase
-     runs under torch.profiler; device time by kernel and the device idle
-     share go to DIR/profile_ml20m.{txt,json}.
+     transposed densify plus a transpose copy, in turns, equal.  The learn
+     harvests its blocks behind the next solve (SLIM_HARVEST_CHUNK unset:
+     8 blocks in flight); after the phase's launch counts are read, the
+     same learn runs with SLIM_HARVEST_CHUNK=0 (each block's harvest
+     complete before the next solve) and pipelined once more, each equal
+     to the first entry for entry, the objective bit-equal; one ``ml20m
+     harvest:`` line gives each run's learn_s, phases (the waits
+     solve-sync and pack-fetch among them) and the harvest worker's
+     seconds.  With --profile DIR the learn and predict run under
+     torch.profiler; device time by kernel and the device idle share (the
+     union of the device rows' intervals: the harvest's copies run on a
+     stream of their own) go to DIR/profile_ml20m.{txt,json}.
   5. model selection (mselect_pairs) over (2, 2) -> (1, 1) with
      SLIM_PALLAS_V4=0, so every wide block takes the v3 sweep; the test set
      is a held-out draw with the same popularity law.  The warm (1, 1)
@@ -127,15 +135,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      2} x l2 in {1, 2} (test set a held-out draw): each point against a
      cold learn of it on the card, (1, 1) against the JAX package's, HR /
      ARHR against the sequential walk's, the same best pair; cols/s of the
-     packed pass and of the walk.
+     packed pass and of the walk.  After the counts are read,
+     estimate_grid_cd over the same points pipelined and with
+     SLIM_HARVEST_CHUNK=0, every point equal entry for entry (``grid
+     harvest:``, each pass's seconds and phases).
   10b. estimate_grid_cd over (2, 2), (1, 1) on the ML-20M matrix (v4):
-     (1, 1) against the JAX package's, (2, 2) against phase 5's cold point.
+     (1, 1) against the JAX package's, (2, 2) against phase 5's cold point;
+     its phases printed.
   11. the ML-20M learn with checkpoint_dir (a temporary directory): equal
      to phase 4 within the gates; a third of the block files deleted and
      the learn resumed, its sweeps and packs those of the deleted blocks
      only, each re-solved block within CKPT_RESOLVE_ATOL of its first
      solve; a full restore launches no sweep and no pack; the directory
-     removed.
+     removed.  The block files are written by the harvest's worker thread
+     in block order (``write_s``: its seconds of writes).
   12. the SLIM / SLIMatrix classes at the ML-1M shape from (user, item,
      rating) triplets: train -> predict (no device given) -> save_model /
      load_model -> predict, against api.learn + get_topn, the matrix's ids
@@ -203,7 +216,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      in the unit of ``launch_unit``; errors and times come from phase 2, at
      the shape the path runs (``ms``/``plain_ms``) and at the other shapes
      checked (``extra``).
-Each phase's wall time is printed.  The last line is
+Each phase's wall time is printed.  On its way out, after a failure
+too, the script stops and reaps every process it started
+(``stop_children``).  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -211,8 +226,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -413,6 +430,66 @@ def group_sweep_work(npad, B, has):
     flops = na * (2.0 * B * npad * grp + B * ch * ch * (grp // ch))
     nbytes = 4.0 * grp * npad * na + B * npad * (13.0 + 8.0)
     return nbytes, flops
+
+
+PR_SET_CHILD_SUBREAPER = 36    # linux/prctl.h
+
+
+def adopt_orphans() -> None:
+    """Make this process the parent of its descendants whose own parent
+    ends first (Linux's child subreaper), so :func:`stop_children` finds
+    them too."""
+    ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1, 0,
+                                            0, 0)
+
+
+def _children() -> list[int]:
+    me = str(os.getpid())
+    kids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = f.read().rsplit(")", 1)[1].split()[1]
+        except OSError:        # the process ended meanwhile
+            continue
+        if ppid == me:
+            kids.append(int(d))
+    return kids
+
+
+def stop_children(grace_s: float = 5.0) -> list[int]:
+    """Stop and reap every process this one started that is still there,
+    so that the run leaves none behind: multiprocessing's resource tracker
+    (started by the first spawned world, it lives until its parent ends)
+    is closed and waited for as multiprocessing closes it, and any other
+    child is sent SIGTERM, then SIGKILL after ``grace_s``.  Returns the
+    pids of those others, each also named on stderr."""
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+    strays = _children()
+    for pid in strays:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            cmd = "?"
+        print(f"chip_smoke: stopping leftover process {pid}: {cmd[:200]}",
+              file=sys.stderr, flush=True)
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + grace_s
+    for pid in strays:
+        with contextlib.suppress(ChildProcessError):   # reaped meanwhile
+            while os.waitpid(pid, os.WNOHANG) == (0, 0):
+                if time.monotonic() > deadline:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+                    break
+                time.sleep(0.05)
+    return strays
 
 
 def card_line() -> str:
@@ -1520,18 +1597,38 @@ def run_serve(dev, noracle=1024):
     return out
 
 
+def device_busy_s(prof):
+    """Seconds in which the card ran anything (kernels, copies, memsets) in
+    a profiled run: the union of their intervals, since the harvest's
+    copies run on a stream of their own beside the compute stream."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
+
+
 def write_profile(prof, wall_s, out_dir):
     """Device time of a profiled run by kernel: the full operator table to
-    ``profile_ml20m.txt``; the device rows (kernels, copies, memsets, on
-    one stream so they never overlap), their sum as busy time and the idle
-    share of ``wall_s`` to ``profile_ml20m.json`` and to stdout."""
+    ``profile_ml20m.txt``; the device rows (kernels, copies, memsets), the
+    sum of their times, the busy time (:func:`device_busy_s`: overlapping
+    rows of two streams counted once) and the idle share of ``wall_s`` to
+    ``profile_ml20m.json`` and to stdout."""
     from torch.autograd import DeviceType
 
     ka = prof.key_averages()
     rows = sorted((e for e in ka if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
-    busy_s = sum(e.self_device_time_total for e in rows) / 1e6
+    busy_s = device_busy_s(prof)
     summary = dict(wall_s=wall_s, device_busy_s=busy_s,
+                   device_sum_s=sum(e.self_device_time_total
+                                    for e in rows) / 1e6,
                    idle_share=1.0 - busy_s / wall_s,
                    top=[dict(name=e.key, calls=e.count,
                              device_s=e.self_device_time_total / 1e6)
@@ -1575,9 +1672,10 @@ def _learn_predict_ml20m(dev, trn):
     pred_s = time.perf_counter() - t0
     out = dict(nrows=trn.nrows, ncols=trn.ncols, nnz=trn.nnz,
                learn_s=stats["learn_s"], phases=stats["phases"],
+               harvest_worker=stats["harvest_worker"],
                sweeps=stats["sweeps"], niters=stats["niters"],
-               objective=stats["loss"], model_nnz=stats["nnz"],
-               predict_s=pred_s, predict_users_per_s=trn.nrows / pred_s,
+               objective=stats["loss"], fit=stats["fit"],
+               model_nnz=stats["nnz"], predict_s=pred_s, predict_users_per_s=trn.nrows / pred_s,
                predict_route=P.last_route,
                predict_precision=P.last_precision,
                cols_per_s=trn.ncols / stats["learn_s"])
@@ -1591,6 +1689,53 @@ def _learn_predict_ml20m(dev, trn):
     out["precision"] = predict_precisions(model, trn, dev)
     out["model_densify"] = model_densify_times(model, dev)
     return out
+
+
+def _harvest_record(stats):
+    return dict(learn_s=stats["learn_s"], phases=stats["phases"],
+                harvest_worker=stats["harvest_worker"],
+                objective=stats["loss"], model_nnz=stats["nnz"],
+                sweeps=stats["sweeps"], niters=stats["niters"])
+
+
+def _same_learn(tag, got, ref):
+    """Two learns of one matrix equal entry for entry, the objective and
+    the other stats bit-equal."""
+    (m, s), (r, t) = got, ref
+    check(m.shape == r.shape and np.array_equal(m.indptr, r.indptr)
+          and np.array_equal(m.indices, r.indices)
+          and np.array_equal(m.data, r.data),
+          f"{tag}: the models differ")
+    for k in ("loss", "fit", "niters", "sweeps"):
+        check(s[k] == t[k], f"{tag}: {k} {s[k]} vs {t[k]}")
+
+
+def check_harvest_ml20m(dev, trn, rec):
+    """Phase 4's harvest check, run after its launch counts are read: the
+    same learn with SLIM_HARVEST_CHUNK=0 (each block's harvest complete
+    before the next solve), then pipelined once more; both equal to phase
+    4's pipelined model entry for entry, the objective bit-equal.  Prints
+    learn_s, phases (with the waits solve-sync and pack-fetch) and the
+    worker's seconds of each."""
+    from slim_tpu_torch import SlimConfig, learn
+
+    cfg = SlimConfig(l1r=1.0, l2r=1.0, dbglvl=2, **ML20M_CFG)
+    first = (_KEPT["ml20m"], dict(loss=rec["objective"], fit=rec["fit"],
+                                  niters=rec["niters"],
+                                  sweeps=rec["sweeps"]))
+    with env(SLIM_HARVEST_CHUNK="0"):
+        serial = learn(trn, cfg, device=dev)
+    again = learn(trn, cfg, device=dev)
+    out = dict(pipelined=dict(learn_s=rec["learn_s"], phases=rec["phases"],
+                              harvest_worker=rec["harvest_worker"]),
+               serial=_harvest_record(serial[1]),
+               pipelined_again=_harvest_record(again[1]),
+               card=card_line())
+    print("ml20m harvest:", json.dumps(out), flush=True)
+    _same_learn("ML-20M serial harvest", serial, first)
+    _same_learn("ML-20M pipelined again", again, first)
+    rec["harvest"] = out
+    return rec
 
 
 def model_densify_times(model, dev):
@@ -1863,6 +2008,33 @@ def run_grid(dev):
     return out
 
 
+def check_harvest_grid(dev, rec):
+    """Phase 10's harvest check, run after its launch counts are read:
+    estimate_grid_cd over the same points at the ML-1M shape, pipelined
+    (the default) and with SLIM_HARVEST_CHUNK=0, every point's model equal
+    entry for entry and its stats bit-equal; each pass's seconds and
+    phases printed."""
+    from slim_tpu_torch import SlimConfig
+    from slim_tpu_torch.datagen import synth_implicit
+    from slim_tpu_torch.solvers.cd import estimate_grid_cd
+
+    trn = synth_implicit(*ML1M_SHAPE, seed=0)
+    cfg = SlimConfig(**ML1M_CFG)
+    points = [(l1, l2) for l1 in GRID_L1 for l2 in GRID_L2]
+    pipe, t_pipe = _timed(lambda: estimate_grid_cd(trn, cfg, points,
+                                                   device=dev))
+    with env(SLIM_HARVEST_CHUNK="0"):
+        serial, t_serial = _timed(lambda: estimate_grid_cd(trn, cfg, points,
+                                                           device=dev))
+    out = dict(pipelined=dict(grid_s=t_pipe, phases=pipe[0][1]["phases"]),
+               serial=dict(grid_s=t_serial, phases=serial[0][1]["phases"]))
+    print("grid harvest:", json.dumps(out), flush=True)
+    for pt, got, ref in zip(points, pipe, serial):
+        _same_learn(f"grid {pt} serial harvest", ref, got)
+    rec["harvest"] = out
+    return rec
+
+
 def run_grid_ml20m(dev, trn, cold22):
     """Phase 10b: estimate_grid_cd over GRID_ML20M on the ML-20M matrix
     (every block on v4): (1, 1) against the JAX package's objective and
@@ -1873,6 +2045,7 @@ def run_grid_ml20m(dev, trn, cold22):
     (res, t) = _timed(lambda: estimate_grid_cd(
         trn, SlimConfig(**ML20M_CFG), GRID_ML20M, device=dev))
     out = dict(grid_s=t, cols_per_s=len(GRID_ML20M) * trn.ncols / t,
+               phases=res[0][1]["phases"],
                per_point=[dict(l1r=pt[0], l2r=pt[1], objective=st["loss"],
                                model_nnz=st["nnz"], sweeps=st["sweeps"],
                                niters=st["niters"])
@@ -1913,6 +2086,7 @@ def run_checkpoint(dev, trn, phase4):
             c0 = _launch_counts()
             model, stats = learn(trn, cfg, device=dev)
             runs.append(dict(learn_s=stats["learn_s"], phases=stats["phases"],
+                             harvest_worker=stats["harvest_worker"],
                              sweeps=stats["sweeps"], objective=stats["loss"],
                              model_nnz=stats["nnz"],
                              launches={k: v for k, v in _since(c0).items()
@@ -1944,7 +2118,7 @@ def run_checkpoint(dev, trn, phase4):
     bit_equal = m2 == m1 and np.array_equal(m2.values(), m1.values())
     out = dict(blocks=len(files), lost=len(lost), runs=runs,
                resolved_max_abs_diff=max(diff), resolved_bit_equal=bit_equal,
-               write_s=runs[0]["phases"].get("checkpoint"),
+               write_s=runs[0]["harvest_worker"].get("checkpoint"),
                restore_s=runs[2]["phases"].get("restore"))
     print("checkpoint:", json.dumps(out))
     r1, r2, r3 = runs
@@ -2759,8 +2933,11 @@ def main(argv=None):
                  if v and k not in PATH_KERNELS[path]]
         check(not stray, f"{path} path launched {stray}: {counts}")
 
-    # a path whose references run the API: held to them after its counts
-    gates = {"cli": lambda run: check_cli(dev, run)}
+    # a path whose references run the API, or the same path again: held to
+    # them after its counts
+    gates = {"cli": lambda run: check_cli(dev, run),
+             "ml20m": lambda run: check_harvest_ml20m(dev, trn, run),
+             "grid": lambda run: check_harvest_grid(dev, run)}
     for path, drive in drives:
         for w in wrappers.values():
             w.launches = 0
@@ -2805,4 +2982,9 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

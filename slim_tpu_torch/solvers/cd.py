@@ -8,10 +8,13 @@ active-set screen concentrates in the low ranks.  Wide catalogues solve
 each block in its union-active-set space (compact path), snapped to full
 width when the union covers more than :func:`compact_frac` of it; FSLIM
 takes the union of the columns' neighbour sets instead of the screen's.  Each
-solved block is harvested by count_over -> offsets -> the pack kernel ->
-host, and the model is assembled by the native runtime's counting sort
-(scipy where no C++ compiler is found; estimate.c:570-593), keeping
-entries > 1e-7 (estimate.c:492-505).
+solved block is harvested behind the next block's solve (:class:`_Harvest`,
+as the JAX package pipelines it): its counts and column stats in one
+fetch, the pack kernel and the maps to item ids on the device, a copy on a
+stream of its own into pinned memory, and the host completion on a worker
+thread, in block order.  The model is assembled by the native runtime's
+counting sort (scipy where no C++ compiler is found; estimate.c:570-593),
+keeping entries > 1e-7 (estimate.c:492-505).
 
 Warm starts (estimate.c:453-471) densify each block's x0 on the device
 from runs: the previous model's columns, or the retained pack of the
@@ -33,7 +36,8 @@ import logging
 import os
 import time
 import zipfile
-from collections import Counter
+from collections import Counter, deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -249,6 +253,19 @@ def _rank_space(train: CSR, cfg: SlimConfig, npad: int, gram, dev):
     return g, p, p_pad, posmap_pad, col_caps[p], nnz_col
 
 
+def _pack_counted(x, c):
+    """The pack of a solved (B, K) block whose per-column counts over
+    EPSILON are ``c`` (host int64, padded columns 0): offsets -> the pack
+    kernel.  Returns (values, coordinate ids) on the device, in column
+    order, ``c.sum()`` long."""
+    off = np.zeros(x.shape[0], np.int32)
+    np.cumsum(c[:-1], out=off[1:])
+    T = int(c.sum())
+    fv, fi = pack(x, torch.from_numpy(off).to(x.device), EPSILON,
+                  nnz_bucket(max(T, 1), floor=128))
+    return fv[:T], fi[:T]
+
+
 def _pack_block(x, nJ: int):
     """Harvest of one solved (B, K) block: per-column counts of entries
     over EPSILON (host; padded columns 0), then offsets -> the pack kernel.
@@ -257,12 +274,7 @@ def _pack_block(x, nJ: int):
     x = x.contiguous()
     c = count_over(x, EPSILON).cpu().numpy().astype(np.int64)
     c[nJ:] = 0
-    off = np.zeros(x.shape[0], np.int32)
-    np.cumsum(c[:-1], out=off[1:])
-    T = int(c.sum())
-    fv, fi = pack(x, torch.from_numpy(off).to(x.device), EPSILON,
-                  nnz_bucket(max(T, 1), floor=128))
-    return c, fv[:T], fi[:T]
+    return (c, *_pack_counted(x, c))
 
 
 def _col_stats(out, nJ: int):
@@ -270,6 +282,161 @@ def _col_stats(out, nJ: int):
     float64 on the host."""
     return torch.stack([o[:nJ].to(torch.float64) for o in out[1:]]) \
         .cpu().numpy()
+
+
+# the main thread's blocked waits in the solve + harvest loop, as the JAX
+# package logs them: on a block's count and stats fetch (the solve's end),
+# and on an in-flight block's copy or host completion
+WAITS = ("solve-sync", "pack-fetch")
+
+
+def _phases(clock: PhaseTimer) -> dict:
+    """The clock's phases, the two waits always among them."""
+    return dict(clock.phases, **{k: clock.phases.get(k, 0.0)
+                                 for k in WAITS})
+
+
+def harvest_depth() -> int:
+    """The most solved blocks whose harvest may be in flight behind the
+    next solve: SLIM_HARVEST_CHUNK, read at call time, default 8.  0 (or
+    less) completes each block's harvest before the next solve starts, the
+    JAX package's unpipelined order."""
+    return max(int(os.environ.get("SLIM_HARVEST_CHUNK", "8")), 0)
+
+
+class _Harvest:
+    """The solved blocks' harvest behind the solves.
+
+    The main thread fetches a block's counts and column stats in one copy
+    (:meth:`fetch`), packs it and maps its ids to item space on the device
+    (:func:`_item_space`), and hands the result to :meth:`submit`: on the
+    card the arrays go to pinned host memory on a copy stream of their own,
+    after an event of the compute stream, and the main thread goes on to
+    the next solve.  One worker thread completes the blocks in the order
+    they were submitted: it waits for the copy, copies the arrays out of
+    the pinned buffers into arrays of their own and runs the caller's
+    ``finish`` (logging, the checkpoint write), so block b's file is
+    written after every earlier block's.  :meth:`put` queues a block
+    that needs no harvest (restored); :meth:`drain`, called right after a
+    lap of the clock, waits until at most ``depth`` blocks are in flight
+    and returns those that left the queue, in block order.  A worker's
+    exception is raised by the :meth:`drain` that reads its block, and no
+    later block completes after it.  On the CPU there is no copy stream:
+    the worker takes the arrays as they are."""
+
+    def __init__(self, dev, clock: PhaseTimer, depth: int):
+        self.dev, self.clock, self.depth = dev, clock, depth
+        self.copy = torch.cuda.Stream(device=dev) if dev.type == "cuda" \
+            else None
+        self.pool = ThreadPoolExecutor(1, thread_name_prefix="slim-harvest")
+        self.queue = deque()
+        self.failed = False
+        # the worker's seconds: waiting on copies, copying out of the
+        # pinned buffers, and what ``finish`` adds (the checkpoint writes)
+        self.worker = Counter()
+
+    def fetch(self, out, nJ: int):
+        """(counts (B,) int64 with the padded columns 0, stats (4, nJ)
+        float64: niters, rstatus, rnorm, obj) of a block solve, in one
+        copy to the host."""
+        x = out[0]
+        B = x.shape[0]
+        h = torch.cat([count_over(x, EPSILON).to(torch.float64),
+                       torch.stack([o.to(torch.float64)
+                                    for o in out[1:]]).reshape(-1)])
+        h = h.cpu().numpy()
+        c = h[:B].astype(np.int64)
+        c[nJ:] = 0
+        self.clock.lap("solve-sync")
+        return c, h[B:].reshape(4, B)[:, :nJ]
+
+    def submit(self, arrays, finish):
+        """Copy the device tensors ``arrays`` to the host and queue
+        ``finish(*host_arrays)`` on the worker."""
+        host = arrays
+        done = None
+        if self.copy is not None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.dev))
+            with torch.cuda.stream(self.copy):
+                self.copy.wait_event(ready)
+                host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                        for a in arrays]
+                for h, a in zip(host, arrays):
+                    h.copy_(a, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.copy)
+        self.queue.append(self.pool.submit(self._complete, arrays, host,
+                                           done, finish))
+
+    def _complete(self, arrays, host, done, finish):
+        """On the worker: one block's host completion (the arrays are kept
+        alive until their copy has ended)."""
+        if self.failed:
+            raise RuntimeError("an earlier block's harvest failed")
+        try:
+            t0 = time.perf_counter()
+            if done is not None:
+                done.synchronize()
+            t1 = time.perf_counter()
+            out = [np.array(h.numpy()) if done is not None else h.numpy()
+                   for h in host]
+            del arrays, host
+            self.worker["copy"] += t1 - t0
+            self.worker["host"] += time.perf_counter() - t1
+            return finish(*out)
+        except BaseException:
+            self.failed = True
+            raise
+
+    def put(self, rec):
+        """Queue a block's result that is ready now."""
+        fut = Future()
+        fut.set_result(rec)
+        self.queue.append(fut)
+
+    def drain(self, depth: int = 0):
+        """Wait until at most ``depth`` blocks are in flight; returns the
+        results that left the queue, in order.  The main thread's wait is
+        charged to ``pack-fetch``."""
+        done = []
+        if len(self.queue) > depth:
+            while len(self.queue) > depth:
+                done.append(self.queue.popleft().result())
+            self.clock.lap("pack-fetch")
+        return done
+
+    def close(self):
+        """Stop the worker: blocks still queued after a failure are
+        cancelled or fail fast."""
+        self.failed = self.failed or bool(self.queue)
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _solved_items(x, n: int, S=None):
+    """A solved (B, K) block ``x`` with the columns that are no model item
+    zeroed (rank padding: coordinate >= n, through S on the compact
+    path), so that its counts and pack hold only entries the model keeps
+    (the JAX package drops them from the fetched pack instead; the same
+    entries remain).  A new contiguous tensor."""
+    cols = S if S is not None else torch.arange(x.shape[1], device=x.device)
+    return x.masked_fill((cols >= n)[None, :], 0.0).contiguous()
+
+
+def _item_space(x, c, J, p32, S=None):
+    """One solved block's model entries in item space on the device: the
+    pack kernel at the counts ``c`` (host), then integer maps only -- each
+    entry's column by ``repeat_interleave`` of the counts, compact ids
+    through S, ranks to items through ``p32`` (rank -> item over npad,
+    int32) for the coordinate and for the target ``J[column]``.  Returns
+    (pack values, pack ids, coord int32, target int32), in column order,
+    ``c.sum()`` entries each."""
+    fv, fi = _pack_counted(x, c)
+    cnt = torch.from_numpy(c).to(x.device)
+    rows = torch.repeat_interleave(torch.arange(x.shape[0], device=x.device),
+                                   cnt, output_size=fv.numel())
+    cp = S.long()[fi.long()] if S is not None else fi.long()
+    return fv, fi, p32[cp], p32[J.long()[rows]]
 
 
 def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
@@ -302,7 +469,14 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     rank (the replicated distributed learn's round-robin) and gathers
     every rank's entries and sums before the assembly, so every rank of
     the process group returns the whole model and its stats
-    (``parallel.dist.distributed_learn``)."""
+    (``parallel.dist.distributed_learn``).
+
+    Up to :func:`harvest_depth` solved blocks (SLIM_HARVEST_CHUNK) are
+    harvested behind the solves (:class:`_Harvest`); 0 harvests each
+    block before the next solve, and gives the same model entry for
+    entry.  ``phases`` are the main thread's seconds, the waits
+    ``solve-sync`` and ``pack-fetch`` among them; ``harvest_worker`` the
+    worker thread's (``copy``, ``host``, ``checkpoint``)."""
     if shard is not None and keep_device_model:
         raise ValueError("keep_device_model needs every block on one "
                          "device, not a shard")
@@ -400,41 +574,54 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
             out = cd_solve_block_ids(g, J, caps_d, x0, *args, **kw,
                                      n_valid=n, **fslim)
         clock.lap("solve")
+        return r0, nJ, J, S, out
 
-        # harvest: counts -> offsets -> pack kernel -> host
-        c, fv, fi = _pack_block(out[0], nJ)
+    def harvest(blk, r0, nJ, J, S, out):
+        """The block's counts and stats (one fetch), its pack and item ids
+        on the device, its completion queued on the worker."""
+        x = _solved_items(out[0], n, S)
+        c, (niters_h, rstatus_h, rnorm_h, obj_h) = harv.fetch((x, *out[1:]),
+                                                              nJ)
+        fv, fi, coord, target = _item_space(x, c, J, p32, S)
         if acc is not None:
             acc.add(c, fv, fi, S)
-        va = fv.cpu().numpy()
-        ia = fi.cpu().numpy().astype(np.int64)
-        niters_h, rstatus_h, rnorm_h, obj_h = _col_stats(out, nJ)
-        rows = np.repeat(np.arange(B, dtype=np.int64), c)
-        cp = S_h[ia].astype(np.int64) if S_h is not None else ia
-        keep = cp < n
-        if dbg(cfg, SLIM_DBG_PROGRESS):
-            for b in range(nJ):
-                j = p[r0 + b]
-                logger.info("Col: %5d %5d rs: %d nits: %4d nnz: %4d "
-                            "rsd: %.2e obj: %.2e", j, int(nnz_col[j]),
-                            int(rstatus_h[b]), int(niters_h[b]), int(c[b]),
-                            rnorm_h[b], obj_h[b])
-        rec = _Block(p[cp[keep]], p[r0 + rows[keep]], va[keep],
-                     float(rnorm_h.sum()), float(obj_h.sum()),
-                     int(niters_h.sum()), int(niters_h.max()) if nJ else 0)
-        clock.lap("harvest")
-        return rec
 
-    blocks = []
-    for blk in mine:
-        rec = ckpt.load(blk) if ckpt is not None else None
-        if rec is not None:
-            clock.lap("restore")
-        else:
-            rec = solve_block(blk)
+        def finish(coord, target, vals):
+            if dbg(cfg, SLIM_DBG_PROGRESS):
+                for b in range(nJ):
+                    j = p[r0 + b]
+                    logger.info("Col: %5d %5d rs: %d nits: %4d nnz: %4d "
+                                "rsd: %.2e obj: %.2e", j, int(nnz_col[j]),
+                                int(rstatus_h[b]), int(niters_h[b]),
+                                int(c[b]), rnorm_h[b], obj_h[b])
+            rec = _Block(coord, target, vals, float(rnorm_h.sum()),
+                         float(obj_h.sum()), int(niters_h.sum()),
+                         int(niters_h.max()) if nJ else 0)
             if ckpt is not None:
+                t0 = time.perf_counter()
                 ckpt.save(blk, rec)
-                clock.lap("checkpoint")
-        blocks.append(rec)
+                harv.worker["checkpoint"] += time.perf_counter() - t0
+            return rec
+
+        harv.submit((coord, target, fv), finish)
+        clock.lap("harvest")
+
+    # solve block b+1 while the worker completes block b's harvest
+    p32 = torch.from_numpy(p_pad.astype(np.int32)).to(dev)
+    harv = _Harvest(dev, clock, harvest_depth())
+    blocks = []
+    try:
+        for blk in mine:
+            rec = ckpt.load(blk) if ckpt is not None else None
+            if rec is not None:
+                harv.put(rec)
+                clock.lap("restore")
+            else:
+                harvest(blk, *solve_block(blk))
+            blocks += harv.drain(harv.depth)
+        blocks += harv.drain()
+    finally:
+        harv.close()
 
     parts = ([b.coord for b in blocks], [b.target for b in blocks],
              [b.vals for b in blocks])
@@ -453,7 +640,8 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         "nnz": model.nnz,
         "niters": niters,
         "sweeps": sweeps,
-        "phases": dict(clock.phases),
+        "phases": _phases(clock),
+        "harvest_worker": dict(harv.worker),
     }
     if use_compact:
         # coordinate width -> blocks, and each compact block's union (rank
@@ -465,8 +653,10 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         stats["W_dev"] = None if acc is None else \
             acc.finalize(p_pad, posmap_pad, n, npad)
     if dbg(cfg, SLIM_DBG_TIME):
-        logger.info("cd phases: %s (total %.2fs)", "  ".join(
-            f"{k} {v:.2f}s" for k, v in clock.phases.items()),
+        logger.info("cd phases: %s [waits: %s] (total %.2fs)", "  ".join(
+            f"{k} {v:.2f}s" for k, v in stats["phases"].items()
+            if k not in WAITS), " ".join(
+            f"{k} {stats['phases'][k]:.2f}s" for k in WAITS),
             time.perf_counter() - clock.start)
     if dbg(cfg, SLIM_DBG_INFO):
         logger.info(
@@ -518,9 +708,11 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
     point's (l1r, l2r), cold (no warm start), block v0's visit order seeded
     with seed + v0 as in the JAX package; FSLIM restricts each column to
     its neighbours.  Each block is harvested through the pack kernel and
-    its entries split by point.  Returns a list of (model, stats) aligned
+    its entries split by point, behind the next block's solve as in
+    :func:`estimate_model_cd`.  Returns a list of (model, stats) aligned
     with ``points``; a point's loss, fit, nnz and niters are its columns'
-    sums, its ``sweeps`` the sweeps of the blocks that hold its columns.
+    sums, its ``sweeps`` the sweeps of the blocks that hold its columns,
+    its ``phases`` those of the whole pass.
     ``gram``: the item-space Gram on ``device`` (a shared or all-reduced
     one); ``shard`` = (rank, size): only the blocks b with b % size ==
     rank, each point gathered from every rank, as in
@@ -536,8 +728,10 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
     l2s = np.asarray([pt[1] for pt in points], dtype=np.float32)
     tri = [([], [], []) for _ in range(P)]   # (coord, target, val) lists
     st = np.zeros((P, 4), np.float64)        # (err, obj, niters, sweeps)
+    clock = PhaseTimer(dev)
     if train.nnz:
-        g, p, _, _, caps_p, _ = _rank_space(train, cfg, npad, gram, dev)
+        g, p, p_pad, _, caps_p, _ = _rank_space(train, cfg, npad, gram,
+                                                dev)
         fslim_nnbrs = int(cfg.nnbrs) if cfg.mtype in ("fslim", "ofslim") \
             else 0
         kw = dict(shuffle=cfg.shuffle, x0_zero=True,
@@ -545,40 +739,70 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
                   variant=pick_large_variant(B, npad), n_valid=n,
                   fslim_nnbrs=fslim_nnbrs, simtype=cfg.simtype)
         x0 = torch.zeros((B, npad), dtype=torch.float32, device=dev)
+        p32 = torch.from_numpy(p_pad.astype(np.int32)).to(dev)
         first, step = (0, B) if shard is None else \
             (B * shard[0], B * shard[1])
-        for v0 in range(first, P * n, step):
-            nv = min(B, P * n - v0)
-            vids = np.arange(v0, v0 + nv)
-            ranks, pts = vids % n, vids // n
-            Jpad = np.full(B, npad - 1, dtype=np.int32)
-            Jpad[:nv] = ranks
-            caps = np.zeros(B, dtype=np.int32)
-            caps[:nv] = caps_p[ranks]
-            l1b = np.zeros(B, dtype=np.float32)
-            l2b = np.ones(B, dtype=np.float32)
-            l1b[:nv], l2b[:nv] = l1s[pts], l2s[pts]
-            out = cd_solve_block_ids(
-                g, *(torch.from_numpy(a).to(dev) for a in (Jpad, caps)), x0,
-                *(torch.from_numpy(a).to(dev) for a in (l1b, l2b)),
-                float(cfg.optTol), torch.Generator().manual_seed(
-                    int(cfg.seed) + v0), **kw)
-            c, fv, fi = _pack_block(out[0], nv)
-            va = fv.cpu().numpy()
-            ia = fi.cpu().numpy().astype(np.int64)
-            rows = np.repeat(np.arange(B, dtype=np.int64), c)
-            keep = ia < n
-            rows, ia, va = rows[keep], ia[keep], va[keep]
-            niters_h, _, rnorm_h, obj_h = _col_stats(out, nv)
+
+        def harvest(v0, nv, J, out):
+            """Block v0's counts and stats (one fetch), its pack and item
+            ids on the device; the worker splits them by grid point (each
+            point's columns are a run of the block's, so its entries are a
+            run of the pack)."""
+            x = _solved_items(out[0], n)
+            c, (niters_h, _, rnorm_h, obj_h) = harv.fetch((x, *out[1:]), nv)
+            fv, _, coord, target = _item_space(x, c, J, p32)
+            pts = np.arange(v0, v0 + nv) // n
+            ends = np.cumsum(c)
             sweeps = int(niters_h.max())
-            for pt in np.unique(pts):
-                mine = pts == pt
-                sel = mine[rows]
-                tri[pt][0].append(p[ia[sel]])
-                tri[pt][1].append(p[ranks[rows[sel]]])
-                tri[pt][2].append(va[sel])
-                st[pt] += (rnorm_h[mine].sum(), obj_h[mine].sum(),
-                           niters_h[mine].sum(), sweeps)
+
+            def finish(coord, target, vals):
+                parts = []
+                for pt in np.unique(pts):
+                    cols = np.flatnonzero(pts == pt)
+                    lo = int(ends[cols[0] - 1]) if cols[0] else 0
+                    hi = int(ends[cols[-1]])
+                    parts.append((pt, coord[lo:hi], target[lo:hi],
+                                  vals[lo:hi], (rnorm_h[cols].sum(),
+                                                obj_h[cols].sum(),
+                                                niters_h[cols].sum(),
+                                                sweeps)))
+                return parts
+
+            harv.submit((coord, target, fv), finish)
+            clock.lap("harvest")
+
+        def add(done):
+            for parts in done:
+                for pt, *arrays, sums in parts:
+                    for lst, a in zip(tri[pt], arrays):
+                        lst.append(a)
+                    st[pt] += sums
+
+        harv = _Harvest(dev, clock, harvest_depth())
+        try:
+            for v0 in range(first, P * n, step):
+                nv = min(B, P * n - v0)
+                vids = np.arange(v0, v0 + nv)
+                ranks, pts = vids % n, vids // n
+                Jpad = np.full(B, npad - 1, dtype=np.int32)
+                Jpad[:nv] = ranks
+                caps = np.zeros(B, dtype=np.int32)
+                caps[:nv] = caps_p[ranks]
+                l1b = np.zeros(B, dtype=np.float32)
+                l2b = np.ones(B, dtype=np.float32)
+                l1b[:nv], l2b[:nv] = l1s[pts], l2s[pts]
+                J = torch.from_numpy(Jpad).to(dev)
+                out = cd_solve_block_ids(
+                    g, J, torch.from_numpy(caps).to(dev), x0,
+                    *(torch.from_numpy(a).to(dev) for a in (l1b, l2b)),
+                    float(cfg.optTol), torch.Generator().manual_seed(
+                        int(cfg.seed) + v0), **kw)
+                clock.lap("solve")
+                harvest(v0, nv, J, out)
+                add(harv.drain(harv.depth))
+            add(harv.drain())
+        finally:
+            harv.close()
 
     results = []
     for pt in range(P):
@@ -591,4 +815,7 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
             "loss": float(obj), "fit": float(err),
             "ffrac": float(err / obj) if obj else 0.0, "nnz": model.nnz,
             "niters": int(niters), "sweeps": int(sweeps)}))
+    clock.lap("assembly")
+    for _, stats in results:
+        stats["phases"] = _phases(clock)
     return results

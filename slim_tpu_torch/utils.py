@@ -56,8 +56,10 @@ def resolve_device(device=None) -> torch.device:
 
 class PhaseTimer:
     """Seconds per named phase of a solve on ``dev``: each :meth:`lap`
-    waits for the device, then charges the time since the previous lap
-    (or the timer's start) to its phase."""
+    waits for the current stream, then charges the time since the previous
+    lap (or the timer's start) to its phase.  Work on other streams (the
+    harvest's copies) is not waited for, so it can overlap the next
+    phase."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
@@ -66,7 +68,7 @@ class PhaseTimer:
 
     def lap(self, name: str) -> None:
         if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
+            torch.cuda.current_stream(self.dev).synchronize()
         t = time.perf_counter()
         self.phases[name] += t - self.t
         self.t = t

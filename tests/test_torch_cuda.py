@@ -767,3 +767,58 @@ def test_high_precision_on_card_matches_highest(dev, rng, kind):
     assert np.all(np.abs(got[1][ok] - ref[1][ok])
                   <= 2.0 ** -16 * ref[1][ok])
     assert ranked_mismatches(got[0], got[1], ref[0], ref[1], ref[2])[1] == 0
+
+
+@pytest.mark.parametrize("shape", ["npad384", "compact"])
+def test_pipelined_harvest_on_card_equals_serial(dev, monkeypatch, shape):
+    """The learn on the card with the harvest behind the solves (copies on
+    the copy stream into pinned memory, the worker's completion) equals
+    the SLIM_HARVEST_CHUNK=0 learn entry for entry, with equal stats and
+    one pack launch a block in both: at npad 384 (the vendored synth set's
+    300 items) and on compact blocks (ids through S)."""
+    import os
+
+    from slim_tpu_torch import SlimConfig
+    from slim_tpu_torch.io.readers import read_matrix
+    from slim_tpu_torch.solvers import cd as C
+
+    if shape == "npad384":
+        m = read_matrix(os.path.join(os.path.dirname(__file__), "data",
+                                     "synth-train.ijv"),
+                        fmt="ijv").infer_ncols()
+        cfg = SlimConfig(l1r=1.0, l2r=1.0, block_size=64)
+    else:
+        mat = random_csr(None, 150, 400, density=0.03, seed=31)
+        m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices,
+                            mat.data)
+        cfg = SlimConfig(l1r=3.0, l2r=1.0, block_size=64,
+                         compact_threshold=64)
+    streams = []
+    real = C._Harvest.submit
+
+    def submit(self, arrays, finish):
+        streams.append(self.copy)
+        return real(self, arrays, finish)
+
+    monkeypatch.setattr(C._Harvest, "submit", submit)
+    runs = []
+    for depth in ("0", "3", None):
+        if depth is None:
+            monkeypatch.delenv("SLIM_HARVEST_CHUNK", raising=False)
+        else:
+            monkeypatch.setenv("SLIM_HARVEST_CHUNK", depth)
+        packs = P.pack.launches
+        model, stats = C.estimate_model_cd(m, cfg, device=dev)
+        runs.append((model, stats, P.pack.launches - packs))
+    nblocks = -(-m.ncols // cfg.block_size)
+    assert streams and all(s is not None for s in streams)
+    (m0, s0, k0) = runs[0]
+    if shape == "compact":
+        assert any(k < 512 for k in s0["union_widths"])
+    for model, stats, k in runs[1:]:
+        np.testing.assert_array_equal(model.indptr, m0.indptr)
+        np.testing.assert_array_equal(model.indices, m0.indices)
+        np.testing.assert_array_equal(model.data, m0.data)
+        for key in ("loss", "fit", "niters", "sweeps"):
+            assert stats[key] == s0[key], key
+        assert k == k0 == nblocks
