@@ -1,0 +1,10 @@
+"""learn.assembly_s.host_paced: learn.assembly_s in the learn cells whose
+solve the host loop paces, reported apart so that their wider spread sets a
+bound of its own."""
+
+from pathlib import Path
+
+from benchmark import harness
+
+read = harness.load(Path(__file__).with_name("learn.assembly_s.py"),
+                    "bench_metric_learn.assembly_s").read
