@@ -24,7 +24,7 @@ from .predict import (SPARSE_PREDICT_THRESHOLD, densify_model,
 from .solvers.admm import estimate_model_admm
 from .solvers.cd import bucket_npad, estimate_model_cd
 from .types import CSR
-from .utils import resolve_device
+from .utils import resolve_device, span
 
 logger = logging.getLogger("slim_tpu_torch")
 
@@ -70,15 +70,12 @@ def learn(train: CSR, cfg: Optional[SlimConfig] = None,
     ``keep_device_model=True`` (CD) returns the model also as
     ``stats["W_dev"]``, a device pack that ``get_topn(..., W_dev=...)``
     densifies in place (no model upload).  ``cfg.profile_dir`` runs the
-    solve under torch.profiler and writes a Chrome trace there."""
+    solve under torch.profiler and writes a Chrome trace there.  The call
+    is a ``slim.learn`` span under a profiler started outside it."""
     if isinstance(cfg, dict):
         cfg = SlimConfig.from_dict(cfg)
     cfg = cfg or SlimConfig()
     dev = resolve_device(device)
-    t_total = time.perf_counter()
-    tmat = setup_training_matrix(train)
-    t_setup = time.perf_counter() - t_total
-    t_learn = time.perf_counter()
 
     def run():
         if cfg.algo == "admm":
@@ -88,10 +85,15 @@ def learn(train: CSR, cfg: Optional[SlimConfig] = None,
                                  keep_device_model=keep_device_model,
                                  device=dev)
 
-    model, stats = _profiled(run, cfg.profile_dir, dev) \
-        if cfg.profile_dir else run()
-    t_learn = time.perf_counter() - t_learn
-    t_total = time.perf_counter() - t_total
+    with span("slim.learn"):
+        t_total = time.perf_counter()
+        tmat = setup_training_matrix(train)
+        t_setup = time.perf_counter() - t_total
+        t_learn = time.perf_counter()
+        model, stats = _profiled(run, cfg.profile_dir, dev) \
+            if cfg.profile_dir else run()
+        t_learn = time.perf_counter() - t_learn
+        t_total = time.perf_counter() - t_total
     stats = dict(stats, setup_s=t_setup, learn_s=t_learn, total_s=t_total)
     if dbg(cfg, SLIM_DBG_TIME):
         logger.info("Timing: total %.3fs setup %.3fs learn %.3fs",

@@ -37,7 +37,10 @@ tensors and as the on-card reference.
 :func:`solve_large_core` and :func:`solve_panel_core` of
 ``pallas_solve_large_core`` with the v4 and the v3 / eager sweep: a
 Python loop of one launch per sweep that carries live / converged /
-niters exactly as the JAX while-loops do.  :func:`pick_large_variant`
+niters exactly as the JAX while-loops do.  Each sweep is a
+``slim.cd.sweep`` span (its host work and launches), the liveness check
+that ends it a ``slim.wait.live`` span inside it, and the start's sweep
+bound a ``slim.wait.tmax`` span.  :func:`pick_large_variant`
 chooses among the three wide-block sweeps as the JAX package does.
 """
 
@@ -48,6 +51,7 @@ import weakref
 
 import torch
 
+from ..utils import span
 from . import _build
 from .cd_kernel import CHUNK, block_stats
 
@@ -391,10 +395,14 @@ def pick_large_variant(B: int, width: int) -> str:
 def _start(active, x0, caps):
     """Masked x0, sweep bound and the live/converged starting masks:
     empty-active columns converge trivially on their first sweep (the
-    reference runs CD over 0 coords, dltx = 0 < optTol)."""
+    reference runs CD over 0 coords, dltx = 0 < optTol).  A column is
+    live at the start whenever the bound is above 0."""
     any_act = active.any(dim=1)
     caps = caps.to(active.device)
-    tmax = int(torch.where(any_act, caps, 0).max()) if caps.numel() else 0
+    tmax = 0
+    if caps.numel():
+        with span("slim.wait.tmax"):
+            tmax = int(torch.where(any_act, caps, 0).max())
     live0 = (any_act & (caps > 0)).to(torch.float32)
     conv0 = (~any_act) & (caps > 0)
     return torch.where(active, x0, 0.0), tmax, live0, conv0
@@ -421,22 +429,27 @@ def solve_core(G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol, gen,
     x, tmax, live, conv = _start(active, x0, caps)
     live = live[:, None]
     niters = torch.zeros(B, dtype=torch.float32, device=dev)
-    t = 0
-    while t < tmax and bool((live > 0).any()):
-        perm = _perm(nchunks, gen, shuffle, dev)
-        chunk_any = (act_f * live).sum(dim=0).reshape(nchunks, CHUNK) \
-            .sum(dim=1) > 0
-        has = chunk_any[perm.long()].to(torch.int32)
-        regs = torch.stack([l1v, l2v, caps_f, torch.full_like(l1v, float(t)),
-                            torch.full_like(l1v, float(optTol))], dim=1)
-        q = x @ G
-        x, _, liven, nit, dl = cd_sweep(G, gj, act_i8, x, q, live, diag2d,
-                                        regs.contiguous(), perm, has)
-        died = (live[:, 0] > 0) & (liven[:, 0] == 0)
-        conv = conv | (died & (dl[:, 0] < optTol))
-        niters += nit[:, 0]
-        live = liven
-        t += 1
+    t, going = 0, tmax > 0
+    while going:
+        with span("slim.cd.sweep"):
+            perm = _perm(nchunks, gen, shuffle, dev)
+            chunk_any = (act_f * live).sum(dim=0).reshape(nchunks, CHUNK) \
+                .sum(dim=1) > 0
+            has = chunk_any[perm.long()].to(torch.int32)
+            regs = torch.stack([l1v, l2v, caps_f,
+                                torch.full_like(l1v, float(t)),
+                                torch.full_like(l1v, float(optTol))], dim=1)
+            q = x @ G
+            x, _, liven, nit, dl = cd_sweep(G, gj, act_i8, x, q, live,
+                                            diag2d, regs.contiguous(), perm,
+                                            has)
+            died = (live[:, 0] > 0) & (liven[:, 0] == 0)
+            conv = conv | (died & (dl[:, 0] < optTol))
+            niters += nit[:, 0]
+            live = liven
+            t += 1
+            with span("slim.wait.live"):
+                going = t < tmax and bool((live > 0).any())
     q = x @ G
     rnorm, obj = block_stats(x, q, gj, yty, l1v, l2v)
     return x, niters.to(torch.int32), conv, rnorm, obj
@@ -474,31 +487,35 @@ def _solve_groups(variant, G, gj, diag, active, x0, caps, yty, l1v, l2v,
     ql = torch.zeros_like(xl) if x0_zero else exact_q(xl)
     niters = torch.zeros(B, dtype=torch.float32, device=dev)
     refresh = q_refresh()
-    t = 0
-    while t < tmax and bool((live > 0).any()):
-        lv = live.reshape(-1)
-        perm = _perm(ngroups, gen, shuffle, dev).long()
-        group_any = (ga @ lv) > 0
-        if variant != "eager":
-            # cluster active groups first (stable) so that windows are
-            # either fully active or skipped
-            inactive = (~group_any[perm]).to(torch.int32)
-            perm = perm[torch.sort(inactive, stable=True).indices]
-        has = group_any[perm].to(torch.int32)
-        regs = torch.stack([l1v, l2v, caps_f, torch.full_like(l1v, float(t)),
-                            torch.full_like(l1v, float(optTol))],
-                           dim=0 if tr else 1)
-        if t % refresh == 0 and t > 0:
-            ql = exact_q(xl)
-        xl, ql, liven, nit, dl = sweep(G, gjl, act, xl, ql, live, diag2d,
-                                       regs.contiguous(),
-                                       perm.to(torch.int32), has)
-        ln = liven.reshape(-1)
-        died = (lv > 0) & (ln == 0)
-        conv = conv | (died & (dl.reshape(-1) < optTol))
-        niters += nit.reshape(-1)
-        live = liven
-        t += 1
+    t, going = 0, tmax > 0
+    while going:
+        with span("slim.cd.sweep"):
+            lv = live.reshape(-1)
+            perm = _perm(ngroups, gen, shuffle, dev).long()
+            group_any = (ga @ lv) > 0
+            if variant != "eager":
+                # cluster active groups first (stable) so that windows are
+                # either fully active or skipped
+                inactive = (~group_any[perm]).to(torch.int32)
+                perm = perm[torch.sort(inactive, stable=True).indices]
+            has = group_any[perm].to(torch.int32)
+            regs = torch.stack([l1v, l2v, caps_f,
+                                torch.full_like(l1v, float(t)),
+                                torch.full_like(l1v, float(optTol))],
+                               dim=0 if tr else 1)
+            if t % refresh == 0 and t > 0:
+                ql = exact_q(xl)
+            xl, ql, liven, nit, dl = sweep(G, gjl, act, xl, ql, live, diag2d,
+                                           regs.contiguous(),
+                                           perm.to(torch.int32), has)
+            ln = liven.reshape(-1)
+            died = (lv > 0) & (ln == 0)
+            conv = conv | (died & (dl.reshape(-1) < optTol))
+            niters += nit.reshape(-1)
+            live = liven
+            t += 1
+            with span("slim.wait.live"):
+                going = t < tmax and bool((live > 0).any())
     x, q = (xl.T, ql.T) if tr else (xl, ql)
     rnorm, obj = block_stats(x, q, gj, yty, l1v, l2v)
     return x.contiguous(), niters.to(torch.int32), conv, rnorm, obj

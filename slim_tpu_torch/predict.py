@@ -51,7 +51,7 @@ from .ops.densify import densify_runs
 from .ops.gram import pin_f32
 from .solvers.cd import bucket_npad
 from .types import CSR
-from .utils import resolve_device, topk_lowest_id
+from .utils import resolve_device, span, topk_lowest_id
 
 # above this many items a dense (npad, npad) W stops fitting next to the
 # score blocks on the JAX package's 16 GB part; kept for parity of routes
@@ -408,9 +408,11 @@ class _Route:
     """Where one call scores: the dense ``W`` at ``precision`` (float32 at
     "highest", else the :func:`split_bf16` halves), or the sparse ``rows``
     by score rows or, with ``coo``, by sorted pairs (float32 sums whatever
-    the precision).  A :class:`DeviceModelPack` whose npad is not the
-    call's is ignored (the model is uploaded), as in the JAX package
-    (predict.py:1122-1125)."""
+    the precision); ``route`` names it ("dense", "rows" or "coo"), and its
+    set-up (the model's densify and split, or its rows and the history's
+    upload) is a ``slim.predict.<route>`` span.  A
+    :class:`DeviceModelPack` whose npad is not the call's is ignored (the
+    model is uploaded), as in the JAX package (predict.py:1122-1125)."""
 
     def __init__(self, model: CSR, hist: CSR, W_dev, sparse, device,
                  precision=None):
@@ -431,32 +433,36 @@ class _Route:
                 W_dev is None and npad > SPARSE_PREDICT_THRESHOLD)
         pin_f32()
         self.W = self.rows = None
-        self.coo = False
-        if not sparse:
-            if isinstance(W_dev, DeviceModelPack):
-                W = W_dev.densify()
-            elif torch.is_tensor(W_dev):
-                W = W_dev
-            else:
-                W = densify_model(model, npad, dev)
-            self.W = W if self.precision == "highest" else split_bf16(
-                W, 2 if self.precision == "high" else 1)
-            return
-        self.rows = RowModel.of_padded(*W_dev, npad) \
-            if isinstance(W_dev, tuple) else RowModel.of_csr(model, npad, dev)
-        self.coo = 0 < coo_npad() <= npad
-        # the history's entries on the device, and each entry's model-row
-        # length on the host (0 for ids >= n, the guard of predict.c:35)
-        self.c = hist.dev_put("idx32", lambda: hist.indices.astype(np.int32),
-                              dev)
-        self.v = None if hist.data is None else hist.dev_put(
-            "val32", lambda: hist.values().astype(np.float32), dev)
-        self.u = hist.dev_put("row32", lambda: np.repeat(
-            np.arange(hist.nrows, dtype=np.int32), np.diff(hist.indptr)), dev)
-        self.ok_h = hist.indices < n
-        self.L_h = np.where(
-            self.ok_h, self.rows.lens_h[np.minimum(hist.indices, npad - 1)],
-            0)
+        self.coo = bool(sparse) and 0 < coo_npad() <= npad
+        self.route = "coo" if self.coo else ("rows" if sparse else "dense")
+        with span(f"slim.predict.{self.route}"):
+            if not sparse:
+                if isinstance(W_dev, DeviceModelPack):
+                    W = W_dev.densify()
+                elif torch.is_tensor(W_dev):
+                    W = W_dev
+                else:
+                    W = densify_model(model, npad, dev)
+                self.W = W if self.precision == "highest" else split_bf16(
+                    W, 2 if self.precision == "high" else 1)
+                return
+            self.rows = RowModel.of_padded(*W_dev, npad) \
+                if isinstance(W_dev, tuple) \
+                else RowModel.of_csr(model, npad, dev)
+            # the history's entries on the device, and each entry's
+            # model-row length on the host (0 for ids >= n, the guard of
+            # predict.c:35)
+            self.c = hist.dev_put(
+                "idx32", lambda: hist.indices.astype(np.int32), dev)
+            self.v = None if hist.data is None else hist.dev_put(
+                "val32", lambda: hist.values().astype(np.float32), dev)
+            self.u = hist.dev_put("row32", lambda: np.repeat(
+                np.arange(hist.nrows, dtype=np.int32), np.diff(hist.indptr)),
+                dev)
+            self.ok_h = hist.indices < n
+            self.L_h = np.where(
+                self.ok_h,
+                self.rows.lens_h[np.minimum(hist.indices, npad - 1)], 0)
 
     def pairs(self, a: int, b: int, u0: int):
         """The (history entry, model entry) pairs of entries [a, b): each
@@ -658,38 +664,59 @@ def predict_topn(model: CSR, hist: CSR, nrcmds: int = 10,
     ``scan`` is accepted and ignored.  A call that pins nothing (no
     ``W_dev``, ``sparse``, ``precision`` or ``scan``) and that
     :func:`native_predict_applicable` accepts scores on the host by the
-    native loop, whatever ``device`` is."""
+    native loop, whatever ``device`` is.
+
+    The call is a ``slim.predict`` span holding its route's set-up span
+    (``slim.predict.native``, ``.dense``, ``.rows`` or ``.coo``), a
+    ``slim.predict.block`` span for each user block's launches and a
+    ``slim.wait.lists`` span for each block's copies to the host."""
     global last_route, last_precision
-    n = max(model.nrows, model.ncols, hist.ncols)
-    if W_dev is None and sparse is None and scan is None \
-            and precision is None \
-            and native_predict_applicable(n, model, hist):
-        logger.info("predict_topn: %d users of a %d-item catalogue on the "
-                    "native host route", hist.nrows, n)
-        last_route, last_precision = "native", None
-        return native.predict_topn(model, hist, nrcmds=nrcmds)
-    r = _Route(model, hist, W_dev, sparse, device, precision)
-    last_route = "coo" if r.coo else ("dense" if r.W is not None
-                                      else "rows")
-    last_precision = r.precision if r.W is not None else None
-    nusers = hist.nrows
-    ids = np.full((nusers, nrcmds), -1, np.int32)
-    scores = np.zeros((nusers, nrcmds), np.float32)
-    counts = np.zeros(nusers, np.int32)
-    if nusers == 0:
+    with span("slim.predict"):
+        n = max(model.nrows, model.ncols, hist.ncols)
+        if W_dev is None and sparse is None and scan is None \
+                and precision is None \
+                and native_predict_applicable(n, model, hist):
+            logger.info("predict_topn: %d users of a %d-item catalogue on "
+                        "the native host route", hist.nrows, n)
+            last_route, last_precision = "native", None
+            with span("slim.predict.native"):
+                return native.predict_topn(model, hist, nrcmds=nrcmds)
+        r = _Route(model, hist, W_dev, sparse, device, precision)
+        last_route = r.route
+        last_precision = r.precision if r.W is not None else None
+        nusers = hist.nrows
+        ids = np.full((nusers, nrcmds), -1, np.int32)
+        scores = np.zeros((nusers, nrcmds), np.float32)
+        counts = np.zeros(nusers, np.int32)
+        if nusers == 0:
+            return ids, scores, counts
+        if r.coo:
+            blocks = ((slice(u0, u1), _coo_topn(keys, sums, u1 - u0,
+                                                r.npad, nrcmds))
+                      for u0, u1, keys, sums in r.coo_runs(hist,
+                                                            exclude=True))
+        else:
+            blocks = ((users, _block_topn(sc, nrcmds))
+                      for users, sc in r.score_blocks(hist, user_block, True))
+        for users, (i, s, c) in _spanned(blocks, "slim.predict.block"):
+            with span("slim.wait.lists"):
+                ids[users] = i.to(torch.int32).cpu().numpy()
+                scores[users] = s.cpu().numpy()
+                counts[users] = c.to(torch.int32).cpu().numpy()
         return ids, scores, counts
-    if r.coo:
-        blocks = ((slice(u0, u1), _coo_topn(keys, sums, u1 - u0, r.npad,
-                                            nrcmds))
-                  for u0, u1, keys, sums in r.coo_runs(hist, exclude=True))
-    else:
-        blocks = ((users, _block_topn(sc, nrcmds))
-                  for users, sc in r.score_blocks(hist, user_block, True))
-    for users, (i, s, c) in blocks:
-        ids[users] = i.to(torch.int32).cpu().numpy()
-        scores[users] = s.cpu().numpy()
-        counts[users] = c.to(torch.int32).cpu().numpy()
-    return ids, scores, counts
+
+
+def _spanned(items, name: str):
+    """The items of the iterable ``items``, the making of each (a user
+    block's densify, products and top-k launches) inside a span ``name``;
+    one more, empty, span ends the iteration."""
+    it = iter(items)
+    while True:
+        with span(name):
+            item = next(it, None)
+        if item is None:
+            return
+        yield item
 
 
 def _check_cand(hist: CSR, cand):

@@ -125,25 +125,25 @@ def estimate_model_admm(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                              no_duplicates=True)
         return model, {"loss": 0.0, "fit": 0.0, "ffrac": 0.0, "nnz": 0,
                        "density": 0.0, "phases": {}}
-    clock = PhaseTimer(dev)
-    T = gram if gram is not None else \
-        compute_gram(train, cfg.gram, pad_to=npad, device=dev)
-    clock.lap("gram")
-    P, A = admm_factor(T, cfg.l2r)
-    clock.lap("factor")
-    W = admm_iterate(P, A, cfg.l1r)
-    del P, A
-    err, obj = admm_stats(T, W, cfg.l1r, cfg.l2r)
-    clock.lap("iterate")
+    clock = PhaseTimer(dev, "slim.admm")
+    with clock.phase("gram"):
+        T = gram if gram is not None else \
+            compute_gram(train, cfg.gram, pad_to=npad, device=dev)
+    with clock.phase("factor"):
+        P, A = admm_factor(T, cfg.l2r)
+    with clock.phase("iterate"):
+        W = admm_iterate(P, A, cfg.l1r)
+        del P, A
+        err, obj = admm_stats(T, W, cfg.l1r, cfg.l2r)
 
     # sparsify W > 0 (strict, estimate.c:241) into the model CSR
-    Wn = W[:n, :n]
-    rows, cols = torch.nonzero(Wn > 0.0, as_tuple=True)
-    vals = Wn[rows, cols].cpu().numpy()
-    model = CSR.from_ijv(rows.cpu().numpy().astype(np.int32),
-                         cols.cpu().numpy().astype(np.int32), vals,
-                         nrows=n, ncols=n, no_duplicates=True)
-    clock.lap("sparsify")
+    with clock.phase("sparsify"):
+        Wn = W[:n, :n]
+        rows, cols = torch.nonzero(Wn > 0.0, as_tuple=True)
+        vals = Wn[rows, cols].cpu().numpy()
+        model = CSR.from_ijv(rows.cpu().numpy().astype(np.int32),
+                             cols.cpu().numpy().astype(np.int32), vals,
+                             nrows=n, ncols=n, no_duplicates=True)
     stats = {"loss": obj, "fit": err, "ffrac": err / obj if obj else 0.0,
              "nnz": model.nnz, "density": model.nnz / max(n * n, 1),
              "phases": dict(clock.phases)}

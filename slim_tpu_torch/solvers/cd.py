@@ -54,7 +54,7 @@ from ..ops.densify import densify_runs
 from ..ops.gram import compute_gram, pin_f32
 from ..ops.pack import pack
 from ..types import CSR
-from ..utils import PhaseTimer, nnz_bucket, resolve_device
+from ..utils import PhaseTimer, nnz_bucket, resolve_device, span
 
 logger = logging.getLogger("slim_tpu_torch")
 
@@ -318,7 +318,7 @@ class _Harvest:
     ``finish`` (logging, the checkpoint write), so block b's file is
     written after every earlier block's.  :meth:`put` queues a block
     that needs no harvest (restored); :meth:`drain`, called right after a
-    lap of the clock, waits until at most ``depth`` blocks are in flight
+    phase of the clock, waits until at most ``depth`` blocks are in flight
     and returns those that left the queue, in block order.  A worker's
     exception is raised by the :meth:`drain` that reads its block, and no
     later block completes after it.  On the CPU there is no copy stream:
@@ -339,15 +339,16 @@ class _Harvest:
         """(counts (B,) int64 with the padded columns 0, stats (4, nJ)
         float64: niters, rstatus, rnorm, obj) of a block solve, in one
         copy to the host."""
-        x = out[0]
-        B = x.shape[0]
-        h = torch.cat([count_over(x, EPSILON).to(torch.float64),
-                       torch.stack([o.to(torch.float64)
-                                    for o in out[1:]]).reshape(-1)])
-        h = h.cpu().numpy()
-        c = h[:B].astype(np.int64)
-        c[nJ:] = 0
-        self.clock.lap("solve-sync")
+        with self.clock.phase("solve-sync"):
+            x = out[0]
+            B = x.shape[0]
+            h = torch.cat([count_over(x, EPSILON).to(torch.float64),
+                           torch.stack([o.to(torch.float64)
+                                        for o in out[1:]]).reshape(-1)])
+            with span("slim.wait.fetch"):
+                h = h.cpu().numpy()
+            c = h[:B].astype(np.int64)
+            c[nJ:] = 0
         return c, h[B:].reshape(4, B)[:, :nJ]
 
     def submit(self, arrays, finish):
@@ -401,9 +402,10 @@ class _Harvest:
         charged to ``pack-fetch``."""
         done = []
         if len(self.queue) > depth:
-            while len(self.queue) > depth:
-                done.append(self.queue.popleft().result())
-            self.clock.lap("pack-fetch")
+            with self.clock.phase("pack-fetch"):
+                while len(self.queue) > depth:
+                    with span("slim.wait.drain"):
+                        done.append(self.queue.popleft().result())
         return done
 
     def close(self):
@@ -482,7 +484,7 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                          "device, not a shard")
     dev = resolve_device(device)
     pin_f32()
-    clock = PhaseTimer(dev)
+    clock = PhaseTimer(dev, "slim.cd")
     n = train.ncols
     npad = bucket_npad(n)
     B = int(cfg.block_size)
@@ -493,26 +495,20 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         return model, {"loss": 0.0, "fit": 0.0, "ffrac": 0.0, "nnz": 0,
                        "niters": 0, "sweeps": 0, "phases": {}}
 
-    g, p, p_pad, posmap_pad, caps_p, nnz_col = _rank_space(train, cfg, npad,
-                                                           gram, dev)
-    clock.lap("gram")
+    with clock.phase("gram"):
+        g, p, p_pad, posmap_pad, caps_p, nnz_col = _rank_space(
+            train, cfg, npad, gram, dev)
     # FSLIM ignores the warm start (cd.py:613 of the JAX package: the
     # reference's active-flag handshake only engages for the screen)
     use_warm = imodel is not None and cfg.mtype in ("slim", "oslim")
     fslim_nnbrs = int(cfg.nnbrs) if cfg.mtype in ("fslim", "ofslim") else 0
     fslim = dict(fslim_nnbrs=fslim_nnbrs, simtype=cfg.simtype)
-    runs = warm_runs(imodel, warm_pack, p_pad, posmap_pad, n, dev) \
-        if use_warm else None
-
     use_compact = npad > int(cfg.compact_threshold)
     if use_compact:
         B = min(B, COMPACT_BMAX)
     nblocks = (n + B - 1) // B
     mine = range(nblocks) if shard is None else \
         range(shard[0], nblocks, shard[1])
-    ckpt = _Checkpoint(cfg, train, n, B, imodel if use_warm else None) \
-        if cfg.checkpoint_dir else None
-    acc = _PackAccum() if keep_device_model and ckpt is None else None
 
     def block_ids(blk):
         """(first rank, real columns, (B,) target ranks on the device, the
@@ -525,55 +521,63 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
 
     union = {}   # blk -> (K, S on device, S on host) for compact blocks
     widths = Counter()
-    if use_compact:
-        if fslim_nnbrs:
-            # one block's (B, npad) neighbour top-k at a time
-            rows = {blk: block_union_mask(g, block_ids(blk)[2], cfg.l1r,
-                                          npad, **fslim) for blk in mine}
-        else:
-            u = block_union_flags(g, nblocks, B, float(cfg.l1r))
-            s_dev, cnt = compact_union_ids(u)
-            del u
-            cnt = cnt.cpu().numpy()
-            rows = {blk: (s_dev[blk], cnt[blk]) for blk in mine}
-        frac = compact_frac()
-        for blk, (s_row, c) in rows.items():
-            K = min(bucket_npad(max(int(c), 1)), npad)
-            if K <= frac * npad and K < npad:
-                S = s_row[:K].contiguous()
-                union[blk] = (K, S, S.cpu().numpy())
-            widths[K if blk in union else npad] += 1
-        del rows
-        if dbg(cfg, SLIM_DBG_TIME):
-            logger.info("union widths: %s", " ".join(
-                f"{k}:{v}" for k, v in sorted(widths.items())))
-    clock.lap("relabel+screen")
+    with clock.phase("relabel+screen"):
+        runs = warm_runs(imodel, warm_pack, p_pad, posmap_pad, n, dev) \
+            if use_warm else None
+        ckpt = _Checkpoint(cfg, train, n, B, imodel if use_warm else None) \
+            if cfg.checkpoint_dir else None
+        acc = _PackAccum() if keep_device_model and ckpt is None else None
+        if use_compact:
+            if fslim_nnbrs:
+                # one block's (B, npad) neighbour top-k at a time
+                rows = {blk: block_union_mask(g, block_ids(blk)[2], cfg.l1r,
+                                              npad, **fslim) for blk in mine}
+            else:
+                u = block_union_flags(g, nblocks, B, float(cfg.l1r))
+                s_dev, cnt = compact_union_ids(u)
+                del u
+                with span("slim.wait.screen"):
+                    cnt = cnt.cpu().numpy()
+                rows = {blk: (s_dev[blk], cnt[blk]) for blk in mine}
+            frac = compact_frac()
+            for blk, (s_row, c) in rows.items():
+                K = min(bucket_npad(max(int(c), 1)), npad)
+                if K <= frac * npad and K < npad:
+                    S = s_row[:K].contiguous()
+                    with span("slim.wait.screen"):
+                        union[blk] = (K, S, S.cpu().numpy())
+                widths[K if blk in union else npad] += 1
+            del rows
+            if dbg(cfg, SLIM_DBG_TIME):
+                logger.info("union widths: %s", " ".join(
+                    f"{k}:{v}" for k, v in sorted(widths.items())))
 
     def solve_block(blk):
         r0, nJ, J = block_ids(blk)
-        caps = np.zeros(B, dtype=np.int32)
-        caps[:nJ] = caps_p[r0:r0 + nJ]
-        caps_d = torch.from_numpy(caps).to(dev)
-        gen = torch.Generator().manual_seed(int(cfg.seed) + blk)
-        args = (float(cfg.l1r), float(cfg.l2r), float(cfg.optTol), gen)
-        K, S, S_h = union.get(blk, (npad, None, None))
+        K, S, _ = union.get(blk, (npad, None, None))
+        x0 = None
         if use_warm:
-            x0 = warm_x0(runs, r0, nJ, B, n, npad)
+            with clock.phase("warm x0"):
+                x0 = warm_x0(runs, r0, nJ, B, n, npad)
+                if S is not None:
+                    x0 = x0.index_select(1, S.long())
+        with clock.phase("solve"):
+            caps = np.zeros(B, dtype=np.int32)
+            caps[:nJ] = caps_p[r0:r0 + nJ]
+            caps_d = torch.from_numpy(caps).to(dev)
+            gen = torch.Generator().manual_seed(int(cfg.seed) + blk)
+            args = (float(cfg.l1r), float(cfg.l2r), float(cfg.optTol), gen)
+            if x0 is None:
+                x0 = torch.zeros((B, K), dtype=torch.float32, device=dev)
+            kw = dict(shuffle=cfg.shuffle, x0_zero=not use_warm,
+                      impl=pick_impl(K, dev, cfg.compact_threshold),
+                      variant=pick_large_variant(B, K))
             if S is not None:
-                x0 = x0.index_select(1, S.long())
-            clock.lap("warm x0")
-        else:
-            x0 = torch.zeros((B, K), dtype=torch.float32, device=dev)
-        kw = dict(shuffle=cfg.shuffle, x0_zero=not use_warm,
-                  impl=pick_impl(K, dev, cfg.compact_threshold),
-                  variant=pick_large_variant(B, K))
-        if S is not None:
-            out = cd_solve_block_compact(g, S, J, caps_d, x0, *args, **kw,
-                                         **fslim)
-        else:
-            out = cd_solve_block_ids(g, J, caps_d, x0, *args, **kw,
-                                     n_valid=n, **fslim)
-        clock.lap("solve")
+                out = cd_solve_block_compact(g, S, J, caps_d, x0, *args,
+                                             **kw, **fslim)
+            else:
+                out = cd_solve_block_ids(g, J, caps_d, x0, *args, **kw,
+                                         n_valid=n, **fslim)
         return r0, nJ, J, S, out
 
     def harvest(blk, r0, nJ, J, S, out):
@@ -582,9 +586,6 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         x = _solved_items(out[0], n, S)
         c, (niters_h, rstatus_h, rnorm_h, obj_h) = harv.fetch((x, *out[1:]),
                                                               nJ)
-        fv, fi, coord, target = _item_space(x, c, J, p32, S)
-        if acc is not None:
-            acc.add(c, fv, fi, S)
 
         def finish(coord, target, vals):
             if dbg(cfg, SLIM_DBG_PROGRESS):
@@ -603,8 +604,11 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                 harv.worker["checkpoint"] += time.perf_counter() - t0
             return rec
 
-        harv.submit((coord, target, fv), finish)
-        clock.lap("harvest")
+        with clock.phase("harvest"):
+            fv, fi, coord, target = _item_space(x, c, J, p32, S)
+            if acc is not None:
+                acc.add(c, fv, fi, S)
+            harv.submit((coord, target, fv), finish)
 
     # solve block b+1 while the worker completes block b's harvest
     p32 = torch.from_numpy(p_pad.astype(np.int32)).to(dev)
@@ -612,11 +616,13 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     blocks = []
     try:
         for blk in mine:
-            rec = ckpt.load(blk) if ckpt is not None else None
-            if rec is not None:
-                harv.put(rec)
-                clock.lap("restore")
-            else:
+            rec = None
+            if ckpt is not None and os.path.exists(ckpt.path(blk)):
+                with clock.phase("restore"):
+                    rec = ckpt.load(blk)
+                    if rec is not None:
+                        harv.put(rec)
+            if rec is None:
                 harvest(blk, *solve_block(blk))
             blocks += harv.drain(harv.depth)
         blocks += harv.drain()
@@ -628,10 +634,10 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     sums = (sum(b.err for b in blocks), sum(b.obj for b in blocks),
             sum(b.niters for b in blocks), sum(b.sweeps for b in blocks))
     if shard is not None:
-        parts, sums = _gathered(*parts, sums, dev)
-        clock.lap("gather")
-    model = _assemble(*parts, n)
-    clock.lap("assembly")
+        with clock.phase("gather"):
+            parts, sums = _gathered(*parts, sums, dev)
+    with clock.phase("assembly"):
+        model = _assemble(*parts, n)
     total_err, total_obj, niters, sweeps = sums
     stats = {
         "loss": total_obj,
@@ -728,18 +734,20 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
     l2s = np.asarray([pt[1] for pt in points], dtype=np.float32)
     tri = [([], [], []) for _ in range(P)]   # (coord, target, val) lists
     st = np.zeros((P, 4), np.float64)        # (err, obj, niters, sweeps)
-    clock = PhaseTimer(dev)
+    clock = PhaseTimer(dev, "slim.cd")
     if train.nnz:
-        g, p, p_pad, _, caps_p, _ = _rank_space(train, cfg, npad, gram,
-                                                dev)
+        # the grid's phases have no "gram": its Gram goes to "solve"
+        with clock.phase("solve"):
+            g, p, p_pad, _, caps_p, _ = _rank_space(train, cfg, npad, gram,
+                                                    dev)
+            x0 = torch.zeros((B, npad), dtype=torch.float32, device=dev)
+            p32 = torch.from_numpy(p_pad.astype(np.int32)).to(dev)
         fslim_nnbrs = int(cfg.nnbrs) if cfg.mtype in ("fslim", "ofslim") \
             else 0
         kw = dict(shuffle=cfg.shuffle, x0_zero=True,
                   impl=pick_impl(npad, dev, cfg.compact_threshold),
                   variant=pick_large_variant(B, npad), n_valid=n,
                   fslim_nnbrs=fslim_nnbrs, simtype=cfg.simtype)
-        x0 = torch.zeros((B, npad), dtype=torch.float32, device=dev)
-        p32 = torch.from_numpy(p_pad.astype(np.int32)).to(dev)
         first, step = (0, B) if shard is None else \
             (B * shard[0], B * shard[1])
 
@@ -750,7 +758,6 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
             run of the pack)."""
             x = _solved_items(out[0], n)
             c, (niters_h, _, rnorm_h, obj_h) = harv.fetch((x, *out[1:]), nv)
-            fv, _, coord, target = _item_space(x, c, J, p32)
             pts = np.arange(v0, v0 + nv) // n
             ends = np.cumsum(c)
             sweeps = int(niters_h.max())
@@ -768,8 +775,9 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
                                                 sweeps)))
                 return parts
 
-            harv.submit((coord, target, fv), finish)
-            clock.lap("harvest")
+            with clock.phase("harvest"):
+                fv, _, coord, target = _item_space(x, c, J, p32)
+                harv.submit((coord, target, fv), finish)
 
         def add(done):
             for parts in done:
@@ -782,22 +790,22 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
         try:
             for v0 in range(first, P * n, step):
                 nv = min(B, P * n - v0)
-                vids = np.arange(v0, v0 + nv)
-                ranks, pts = vids % n, vids // n
-                Jpad = np.full(B, npad - 1, dtype=np.int32)
-                Jpad[:nv] = ranks
-                caps = np.zeros(B, dtype=np.int32)
-                caps[:nv] = caps_p[ranks]
-                l1b = np.zeros(B, dtype=np.float32)
-                l2b = np.ones(B, dtype=np.float32)
-                l1b[:nv], l2b[:nv] = l1s[pts], l2s[pts]
-                J = torch.from_numpy(Jpad).to(dev)
-                out = cd_solve_block_ids(
-                    g, J, torch.from_numpy(caps).to(dev), x0,
-                    *(torch.from_numpy(a).to(dev) for a in (l1b, l2b)),
-                    float(cfg.optTol), torch.Generator().manual_seed(
-                        int(cfg.seed) + v0), **kw)
-                clock.lap("solve")
+                with clock.phase("solve"):
+                    vids = np.arange(v0, v0 + nv)
+                    ranks, pts = vids % n, vids // n
+                    Jpad = np.full(B, npad - 1, dtype=np.int32)
+                    Jpad[:nv] = ranks
+                    caps = np.zeros(B, dtype=np.int32)
+                    caps[:nv] = caps_p[ranks]
+                    l1b = np.zeros(B, dtype=np.float32)
+                    l2b = np.ones(B, dtype=np.float32)
+                    l1b[:nv], l2b[:nv] = l1s[pts], l2s[pts]
+                    J = torch.from_numpy(Jpad).to(dev)
+                    out = cd_solve_block_ids(
+                        g, J, torch.from_numpy(caps).to(dev), x0,
+                        *(torch.from_numpy(a).to(dev) for a in (l1b, l2b)),
+                        float(cfg.optTol), torch.Generator().manual_seed(
+                            int(cfg.seed) + v0), **kw)
                 harvest(v0, nv, J, out)
                 add(harv.drain(harv.depth))
             add(harv.drain())
@@ -805,17 +813,18 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
             harv.close()
 
     results = []
-    for pt in range(P):
-        parts, sums = tri[pt], st[pt]
-        if shard is not None:
-            parts, sums = _gathered(*parts, sums, dev)
-        model = _assemble(*parts, n)
-        err, obj, niters, sweeps = sums
-        results.append((model, {
-            "loss": float(obj), "fit": float(err),
-            "ffrac": float(err / obj) if obj else 0.0, "nnz": model.nnz,
-            "niters": int(niters), "sweeps": int(sweeps)}))
-    clock.lap("assembly")
+    with clock.phase("assembly"):
+        for pt in range(P):
+            parts, sums = tri[pt], st[pt]
+            if shard is not None:
+                parts, sums = _gathered(*parts, sums, dev)
+            model = _assemble(*parts, n)
+            err, obj, niters, sweeps = sums
+            results.append((model, {
+                "loss": float(obj), "fit": float(err),
+                "ffrac": float(err / obj) if obj else 0.0,
+                "nnz": model.nnz, "niters": int(niters),
+                "sweeps": int(sweeps)}))
     for _, stats in results:
         stats["phases"] = _phases(clock)
     return results

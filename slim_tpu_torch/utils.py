@@ -2,10 +2,12 @@
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import Counter
 
 import torch
+from torch.autograd import _profiler_enabled
 
 
 def nnz_bucket(n: int, floor: int = 8) -> int:
@@ -54,21 +56,39 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` span while a profiler
+    runs, else a shared no-op context after one flag check: the port's
+    spans cost nothing measurable in an unprofiled run.  Spans opened on a
+    thread of the port's own (the harvest worker) do not reach the
+    trace."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
 class PhaseTimer:
-    """Seconds per named phase of a solve on ``dev``: each :meth:`lap`
-    waits for the current stream, then charges the time since the previous
-    lap (or the timer's start) to its phase.  Work on other streams (the
-    harvest's copies) is not waited for, so it can overlap the next
+    """Seconds per named phase of a solve on ``dev``: each :meth:`phase`
+    block is a span ``<prefix>.<name>`` and, at its end, waits for the
+    current stream (a ``slim.wait.lap`` span on the card), then charges
+    the time since the block began to its phase.  Work on other streams
+    (the harvest's copies) is not waited for, so it can overlap the next
     phase."""
 
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.start = self.t = time.perf_counter()
+    def __init__(self, dev: torch.device, prefix: str):
+        self.dev, self.prefix = dev, prefix
+        self.start = time.perf_counter()
         self.phases = Counter()
 
-    def lap(self, name: str) -> None:
-        if self.dev.type == "cuda":
-            torch.cuda.current_stream(self.dev).synchronize()
-        t = time.perf_counter()
-        self.phases[name] += t - self.t
-        self.t = t
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        with span(f"{self.prefix}.{name}"):
+            yield
+            if self.dev.type == "cuda":
+                with span("slim.wait.lap"):
+                    torch.cuda.current_stream(self.dev).synchronize()
+        self.phases[name] += time.perf_counter() - t0

@@ -208,7 +208,8 @@ def test_mselect_matches_jax(parallel):
 
 def test_profile_dir_writes_a_trace(tmp_path):
     """learn with cfg.profile_dir runs under torch.profiler and exports a
-    Chrome trace there whose events include the solve's operators."""
+    Chrome trace there whose events include the solve's operators and the
+    solver's phase spans."""
     mat = random_csr(np.random.default_rng(9), 40, 20, density=0.3)
     from slim_tpu_torch.types import CSR
 
@@ -220,6 +221,8 @@ def test_profile_dir_writes_a_trace(tmp_path):
     assert len(traces) == 1 and stats["loss"] > 0
     events = json.load(open(traces[0]))["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    names = {e.get("name") for e in events}
+    assert {"slim.cd.solve", "slim.cd.assembly"} <= names
 
 
 def test_package_exports_every_name_of_the_jax_package():
