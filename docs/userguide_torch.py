@@ -359,6 +359,12 @@ def _knobs_and_serving(rec, dev, train_csr, tmp):
     # device and pass it back as W_dev.  Three forms: the learn's device
     # pack (keep_device_model=True), a dense W (densify_model), and the
     # padded sparse rows (sparsify_model_device, which routes sparse).
+    # At "high" or "default" (a catalogue above npad 8,192 by default) a
+    # dense W, or a pack's, keeps its bfloat16 halves on the device while
+    # it lives unchanged (as much memory again as W at "high"), so later
+    # calls do not split it again; dropping W (or pack.free_dense())
+    # frees them.  A write to W that bypasses its version counter (.data,
+    # DLPack) is not seen.
     serve = {}
     for name, W in (("pack", st2["W_dev"]),
                     ("dense", densify_model(mdl2, device=dev)),

@@ -18,7 +18,9 @@ order equal scores by the lowest id (:func:`topk_lowest_id`, the order
   (TF32 off) at ``"highest"``, bfloat16 operands with float32 sums on the
   tensor cores at ``"high"`` (W split in two halves) and ``"default"``.
   A model the solver kept on the device (:class:`DeviceModelPack`)
-  densifies there, with no upload.
+  densifies there, with no upload.  The halves of a W the caller keeps
+  (``W_dev``) are made once and kept on the device while W lives
+  unchanged (:func:`_halves_of`).
 * **sparse score rows** (wider catalogues, or ``sparse=True``): each
   history entry expands to its model row's real entries (:class:`RowModel`)
   and the (user, candidate, weight) pairs scatter-add into a float32
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import logging
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -174,6 +177,40 @@ def split_bf16(W, halves: int):
     Wk[:npad].copy_(W)
     if halves == 2:
         torch.sub(W, Wk[:npad], out=Wk[npad:])
+    return Wk
+
+
+# the one kept split of a dense W (_halves_of): (a weak reference to W,
+# W's version counter when split, the number of halves, the halves)
+_SPLIT = {}
+
+
+def _halves_of(W, halves: int):
+    """:func:`split_bf16` of ``W``, made once and kept on W's device while
+    W lives unchanged: the same tensor object with the same version
+    counter (an in-place write to W or to any view of it bumps it).  Two
+    kept halves serve a one-half call too (its half is the first, byte
+    for byte :func:`split_bf16` of one half); a two-half call on one kept
+    half splits again.  One split is kept, of the latest W; dropping W
+    frees its halves.  Writes that bypass the version counter (through
+    ``.data`` or DLPack) are not seen.  A split made is a
+    ``slim.predict.split`` span, a kept one served an empty
+    ``slim.predict.split_hit``."""
+    hit = _SPLIT.get("W")
+    if hit is not None and hit[0]() is W and hit[1] == W._version \
+            and hit[2] >= halves:
+        with span("slim.predict.split_hit"):
+            pass
+        return hit[3][:halves * W.shape[0]]
+
+    def drop(ref):
+        if _SPLIT.get("W", (None,))[0] is ref:
+            del _SPLIT["W"]
+
+    _SPLIT.clear()
+    with span("slim.predict.split"):
+        Wk = split_bf16(W, halves)
+    _SPLIT["W"] = (weakref.ref(W, drop), W._version, halves, Wk)
     return Wk
 
 
@@ -406,7 +443,8 @@ def _user_block(npad: int, user_block: int) -> int:
 
 class _Route:
     """Where one call scores: the dense ``W`` at ``precision`` (float32 at
-    "highest", else the :func:`split_bf16` halves), or the sparse ``rows``
+    "highest", else W's bfloat16 halves by :func:`_halves_of`, which keeps
+    those of a W that outlives the call), or the sparse ``rows``
     by score rows or, with ``coo``, by sorted pairs (float32 sums whatever
     the precision); ``route`` names it ("dense", "rows" or "coo"), and its
     set-up (the model's densify and split, or its rows and the history's
@@ -443,7 +481,7 @@ class _Route:
                     W = W_dev
                 else:
                     W = densify_model(model, npad, dev)
-                self.W = W if self.precision == "highest" else split_bf16(
+                self.W = W if self.precision == "highest" else _halves_of(
                     W, 2 if self.precision == "high" else 1)
                 return
             self.rows = RowModel.of_padded(*W_dev, npad) \
@@ -661,7 +699,11 @@ def predict_topn(model: CSR, hist: CSR, nrcmds: int = 10,
     above SPARSE_PREDICT_THRESHOLD); ``precision`` the dense route's
     scoring ("default", "high" or "highest", or ``jax.lax.Precision``'s
     member of that name; default :func:`_score_precision`'s npad rule);
-    ``scan`` is accepted and ignored.  A call that pins nothing (no
+    ``scan`` is accepted and ignored.  At "high" or "default" a dense
+    ``W_dev`` (or a pack's dense W) keeps its bfloat16 halves on the
+    device while it lives unchanged, as much memory again as a float32 W
+    at "high" and half that at "default"; dropping W frees them
+    (:func:`_halves_of`).  A call that pins nothing (no
     ``W_dev``, ``sparse``, ``precision`` or ``scan``) and that
     :func:`native_predict_applicable` accepts scores on the host by the
     native loop, whatever ``device`` is.

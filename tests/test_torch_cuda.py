@@ -769,6 +769,33 @@ def test_high_precision_on_card_matches_highest(dev, rng, kind):
     assert ranked_mismatches(got[0], got[1], ref[0], ref[1], ref[2])[1] == 0
 
 
+def test_kept_split_on_card_equals_a_fresh_one(dev, rng, monkeypatch):
+    """Above npad 8192 a resident W is split once on the card: the calls
+    served its kept halves give the ids, scores and counts of a call that
+    splits a copy of W afresh, bit for bit."""
+    from slim_tpu_torch import predict as Pr
+
+    n, nusers = 9000, 300
+    r, c = rng.integers(0, n, 160_000), rng.integers(0, n, 160_000)
+    model = CSR.from_ijv(r, c, rng.random(r.size).astype(np.float32) + 0.01,
+                         nrows=n, ncols=n)
+    u, i = rng.integers(0, nusers, 30_000), rng.integers(0, n, 30_000)
+    hist = CSR.from_ijv(u, i, rng.integers(1, 6, u.size).astype(np.float32),
+                        nrows=nusers, ncols=n)
+    made = []
+    split = Pr.split_bf16
+    monkeypatch.setattr(Pr, "split_bf16",
+                        lambda W, h: made.append(h) or split(W, h))
+    W = Pr.densify_model(model, device=dev)
+    kept = [predict_topn(model, hist, nrcmds=10, W_dev=W) for _ in range(3)]
+    assert Pr.last_precision == "high" and made == [2]
+    fresh = predict_topn(model, hist, nrcmds=10, W_dev=W.clone())
+    assert made == [2, 2]
+    for got in kept:
+        for a, b in zip(got, fresh):
+            np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("shape", ["npad384", "compact"])
 def test_pipelined_harvest_on_card_equals_serial(dev, monkeypatch, shape):
     """The learn on the card with the harvest behind the solves (copies on

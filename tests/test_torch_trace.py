@@ -157,6 +157,25 @@ def test_a_call_opens_the_span_of_its_route(route, monkeypatch):
         assert not any(_inside(w, b) for w in lists for b in blocks)
 
 
+def test_a_kept_split_is_a_hit_span(monkeypatch):
+    """At "high" the first call on a resident W splits it inside its
+    ``slim.predict.dense`` span (``slim.predict.split``); the next is
+    served the kept split (an empty ``slim.predict.split_hit``)."""
+    monkeypatch.setattr(predict, "_SPLIT", {})
+    model, hist = _serve()
+    W = predict.densify_model(model, device="cpu")
+    names = []
+    for _ in range(2):
+        _, spans = _profiled(lambda: predict.predict_topn(
+            model, hist, W_dev=W, precision="high", device="cpu"))
+        dense = [s for s in spans if s[0] == "slim.predict.dense"]
+        split = [s for s in spans if s[0].startswith("slim.predict.split")]
+        assert len(dense) == len(split) == 1
+        assert _inside(split[0], dense[0])
+        names.append(split[0][0])
+    assert names == ["slim.predict.split", "slim.predict.split_hit"]
+
+
 class _Probe:
     """A stand-in for ``record_function`` that counts its entries."""
     entered = 0
