@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import topk_lowest_id
+from ..utils import span, topk_lowest_id
 from .pack import pack_plain as pack_flat  # noqa: F401  (the pack contract)
 
 CHUNK = 128  # coordinates per Gauss-Seidel chunk
@@ -115,9 +115,12 @@ def compact_union_ids(u):
 
 def block_union_mask(G, j_ids, l1r, K, fslim_nnbrs=0, simtype="cos"):
     """Union active set of one block: (S (K,) ascending ids padded with
-    npad-1, true union count).  With ``fslim_nnbrs`` > 0 the union of the
-    columns' FSLIM neighbour sets: restricting each column's top-k to it is
-    exact, since every column's own top-k lies inside."""
+    npad-1, true union count, the block's active entries summed over its
+    columns: its FSLIM neighbours).  With ``fslim_nnbrs`` > 0 the union of
+    the columns' FSLIM neighbour sets: restricting each column's top-k to
+    it is exact, since every column's own top-k lies inside.  The host
+    waits for the two counts, fetched in one copy (a ``slim.wait.select``
+    span, or ``slim.wait.screen`` for the screen's union)."""
     npad = G.shape[0]
     gj = G[:, j_ids.long()].T.contiguous()
     B = gj.shape[0]
@@ -127,13 +130,15 @@ def block_union_mask(G, j_ids, l1r, K, fslim_nnbrs=0, simtype="cos"):
     else:
         active = screen(gj, j_ids, per_col(l1r, B, G.device))
     u = active.any(dim=0)
-    count = int(u.sum())
+    wait = "slim.wait.select" if fslim_nnbrs > 0 else "slim.wait.screen"
+    with span(wait):
+        count, nbrs = torch.stack([u.sum(), active.sum()]).tolist()
     cols = torch.arange(npad, device=G.device, dtype=j_ids.dtype)
     key = torch.where(u, cols, cols + npad)
     order = torch.argsort(key)[:K]
     pos = torch.arange(K, device=G.device)
     S = torch.where(pos < count, order.to(j_ids.dtype), npad - 1)
-    return S, count
+    return S, count, nbrs
 
 
 def _solve(impl, G, gj, diag, active, x0, caps, yty, l1v, l2v, optTol, gen,

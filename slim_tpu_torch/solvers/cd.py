@@ -312,11 +312,12 @@ class _Harvest:
     (:func:`_item_space`), and hands the result to :meth:`submit`: on the
     card the arrays go to pinned host memory on a copy stream of their own,
     after an event of the compute stream, and the main thread goes on to
-    the next solve.  One worker thread completes the blocks in the order
-    they were submitted: it waits for the copy, copies the arrays out of
-    the pinned buffers into arrays of their own and runs the caller's
-    ``finish`` (logging, the checkpoint write), so block b's file is
-    written after every earlier block's.  :meth:`put` queues a block
+    the next solve, which queues the block on the worker
+    (:meth:`hand_over`).  One worker thread completes the blocks in the
+    order they were submitted: it waits for the copy, copies the arrays
+    out of the pinned buffers into arrays of their own and runs the
+    caller's ``finish`` (logging, the checkpoint write), so block b's file
+    is written after every earlier block's.  :meth:`put` queues a block
     that needs no harvest (restored); :meth:`drain`, called right after a
     phase of the clock, waits until at most ``depth`` blocks are in flight
     and returns those that left the queue, in block order.  A worker's
@@ -330,6 +331,7 @@ class _Harvest:
             else None
         self.pool = ThreadPoolExecutor(1, thread_name_prefix="slim-harvest")
         self.queue = deque()
+        self.handed = deque()   # blocks not yet queued (:meth:`hand_over`)
         self.failed = False
         # the worker's seconds: waiting on copies, copying out of the
         # pinned buffers, and what ``finish`` adds (the checkpoint writes)
@@ -367,8 +369,21 @@ class _Harvest:
                     h.copy_(a, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(self.copy)
-        self.queue.append(self.pool.submit(self._complete, arrays, host,
-                                           done, finish))
+        self.handed.append((arrays, host, done, finish))
+
+    def hand_over(self):
+        """Queue the blocks submitted (and put) since the last call on the
+        worker, in order.  Called inside a phase whose body goes on with
+        work (the next block's solve) or waits for the worker (a drain's
+        ``pack-fetch``): the worker then takes the interpreter lock while
+        the main thread is inside a span.  Woken just before a span ends,
+        it took the lock that the span's closing releases, and the phase's
+        clock, read after the span, counted the main thread's wait to get
+        it back, which the span does not hold."""
+        while self.handed:
+            item = self.handed.popleft()
+            self.queue.append(item if isinstance(item, Future)
+                              else self.pool.submit(self._complete, *item))
 
     def _complete(self, arrays, host, done, finish):
         """On the worker: one block's host completion (the arrays are kept
@@ -394,15 +409,16 @@ class _Harvest:
         """Queue a block's result that is ready now."""
         fut = Future()
         fut.set_result(rec)
-        self.queue.append(fut)
+        self.handed.append(fut)
 
     def drain(self, depth: int = 0):
         """Wait until at most ``depth`` blocks are in flight; returns the
         results that left the queue, in order.  The main thread's wait is
         charged to ``pack-fetch``."""
         done = []
-        if len(self.queue) > depth:
+        if len(self.queue) + len(self.handed) > depth:
             with self.clock.phase("pack-fetch"):
+                self.hand_over()
                 while len(self.queue) > depth:
                     with span("slim.wait.drain"):
                         done.append(self.queue.popleft().result())
@@ -411,6 +427,7 @@ class _Harvest:
     def close(self):
         """Stop the worker: blocks still queued after a failure are
         cancelled or fail fast."""
+        self.hand_over()
         self.failed = self.failed or bool(self.queue)
         self.pool.shutdown(wait=True, cancel_futures=True)
 
@@ -454,7 +471,11 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
 
     FSLIM (mtype fslim, and ofslim, which learns as fslim) restricts each
     column's active set to its ``cfg.nnbrs`` most similar items
-    (``cfg.simtype``) and ignores the warm start.  ``imodel``
+    (``cfg.simtype``) and ignores the warm start.  On the compact path the
+    neighbour selection and the unions it gives are the phase ``select``
+    (in place of ``relabel+screen``), and ``stats["fslim"]`` counts its
+    ``blocks`` and the ``neighbours`` selected over their columns; at full
+    width each block's solve selects its own.  ``imodel``
     warm-starts every column from that model (mtype slim, and
     oslim, whose ``ordered`` flag the reference never reads);
     ``warm_pack``, the retained pack of a learn over the same matrix,
@@ -521,24 +542,31 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
 
     union = {}   # blk -> (K, S on device, S on host) for compact blocks
     widths = Counter()
-    with clock.phase("relabel+screen"):
+    selected = Counter()   # the FSLIM selection's blocks and neighbours
+    # FSLIM's neighbour selection is the compact path's screen
+    select = use_compact and fslim_nnbrs > 0
+    with clock.phase("select" if select else "relabel+screen"):
         runs = warm_runs(imodel, warm_pack, p_pad, posmap_pad, n, dev) \
             if use_warm else None
         ckpt = _Checkpoint(cfg, train, n, B, imodel if use_warm else None) \
             if cfg.checkpoint_dir else None
         acc = _PackAccum() if keep_device_model and ckpt is None else None
+        if select:
+            # one block's (B, npad) neighbour top-k at a time
+            rows = {}
+            for blk in mine:
+                S, c, nbrs = block_union_mask(g, block_ids(blk)[2], cfg.l1r,
+                                              npad, **fslim)
+                rows[blk] = (S, c)
+                selected.update(blocks=1, neighbours=nbrs)
+        elif use_compact:
+            u = block_union_flags(g, nblocks, B, float(cfg.l1r))
+            s_dev, cnt = compact_union_ids(u)
+            del u
+            with span("slim.wait.screen"):
+                cnt = cnt.cpu().numpy()
+            rows = {blk: (s_dev[blk], cnt[blk]) for blk in mine}
         if use_compact:
-            if fslim_nnbrs:
-                # one block's (B, npad) neighbour top-k at a time
-                rows = {blk: block_union_mask(g, block_ids(blk)[2], cfg.l1r,
-                                              npad, **fslim) for blk in mine}
-            else:
-                u = block_union_flags(g, nblocks, B, float(cfg.l1r))
-                s_dev, cnt = compact_union_ids(u)
-                del u
-                with span("slim.wait.screen"):
-                    cnt = cnt.cpu().numpy()
-                rows = {blk: (s_dev[blk], cnt[blk]) for blk in mine}
             frac = compact_frac()
             for blk, (s_row, c) in rows.items():
                 K = min(bucket_npad(max(int(c), 1)), npad)
@@ -562,6 +590,7 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                 if S is not None:
                     x0 = x0.index_select(1, S.long())
         with clock.phase("solve"):
+            harv.hand_over()
             caps = np.zeros(B, dtype=np.int32)
             caps[:nJ] = caps_p[r0:r0 + nJ]
             caps_d = torch.from_numpy(caps).to(dev)
@@ -655,6 +684,8 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         stats["union_widths"] = dict(sorted(widths.items()))
         stats["unions"] = {b: S_h[S_h < npad - 1]
                            for b, (_, _, S_h) in union.items()}
+    if selected:
+        stats["fslim"] = dict(selected)
     if keep_device_model:
         stats["W_dev"] = None if acc is None else \
             acc.finalize(p_pad, posmap_pad, n, npad)
@@ -791,6 +822,7 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
             for v0 in range(first, P * n, step):
                 nv = min(B, P * n - v0)
                 with clock.phase("solve"):
+                    harv.hand_over()
                     vids = np.arange(v0, v0 + nv)
                     ranks, pts = vids % n, vids // n
                     Jpad = np.full(B, npad - 1, dtype=np.int32)

@@ -122,10 +122,16 @@ def test_union_mask_matches_jax(simtype):
     J = np.arange(40, 72, dtype=np.int32)
     Sj, cj = jcd.block_union_mask(jnp.asarray(G), jnp.asarray(J), 0.0, npad,
                                   fslim_nnbrs=5, simtype=simtype)
-    St, ct = tcd.block_union_mask(torch.from_numpy(G), torch.from_numpy(J),
-                                  0.0, npad, fslim_nnbrs=5, simtype=simtype)
+    St, ct, nt = tcd.block_union_mask(torch.from_numpy(G),
+                                      torch.from_numpy(J), 0.0, npad,
+                                      fslim_nnbrs=5, simtype=simtype)
     assert int(ct) == int(cj) and 0 < int(ct) < npad
     np.testing.assert_array_equal(St.numpy(), np.asarray(Sj))
+    # the neighbours it counts are the selection's own, at most 5 a column
+    mask = tcd.fslim_active_mask(torch.from_numpy(G[:, J].T.copy()),
+                                 torch.from_numpy(np.diagonal(G).copy()),
+                                 torch.from_numpy(J), npad, 5, simtype)
+    assert nt == int(mask.sum()) <= 5 * len(J)
 
 
 def test_fslim_restricts_support_and_matches_oracle():

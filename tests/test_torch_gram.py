@@ -111,8 +111,8 @@ def test_block_union_mask_and_count_over_match_jax(rng):
     G = jax_gram_host(mat, pad_to=256)
     J = np.arange(40, 72, dtype=np.int32)
     Sj, cj = jcd.block_union_mask(jnp.asarray(G), jnp.asarray(J), 1.0, 128)
-    St, ct = tcd.block_union_mask(torch.from_numpy(G), torch.from_numpy(J),
-                                  1.0, 128)
+    St, ct, _ = tcd.block_union_mask(torch.from_numpy(G),
+                                     torch.from_numpy(J), 1.0, 128)
     np.testing.assert_array_equal(St.numpy(), np.asarray(Sj))
     assert ct == int(cj)
     x = np.where(rng.random((8, 256)) < 0.3, rng.random((8, 256)), 0) \

@@ -1,10 +1,11 @@
 """The port's trace spans (``slim_tpu_torch.utils.span``): a learn under
 ``torch.profiler`` holds ``slim.learn`` and a ``<prefix>.<phase>`` span
-for each of ``stats["phases"]``, as long as the phase; each sweep of the
-CD loops is a ``slim.cd.sweep`` span with one ``slim.wait.live`` inside;
-a predict call holds ``slim.predict`` and the span of its route; with no
-profiler running no ``record_function`` is entered; and spans change no
-model and no list.  All on the CPU."""
+for each of ``stats["phases"]``, as long as the phase (FSLIM's compact
+selection: ``slim.cd.select``, one ``slim.wait.select`` a block); each
+sweep of the CD loops is a ``slim.cd.sweep`` span with one
+``slim.wait.live`` inside; a predict call holds ``slim.predict`` and the
+span of its route; with no profiler running no ``record_function`` is
+entered; and spans change no model and no list.  All on the CPU."""
 
 import json
 import os
@@ -64,10 +65,16 @@ def _profiled(fn):
     return out, _spans(prof)
 
 
+NNBRS = 10
 LEARNS = {
     "cd": (dict(block_size=16), "slim.cd"),
     # npad 256 over a compact threshold of 64: the union screen runs
     "cd-compact": (dict(block_size=16, compact_threshold=64), "slim.cd"),
+    # FSLIM at full width selects inside each block's solve; on the compact
+    # path the selection is the phase ``select``, a wait for each block
+    "fslim": (dict(block_size=16, nnbrs=NNBRS), "slim.cd"),
+    "fslim-compact": (dict(block_size=16, nnbrs=NNBRS, compact_threshold=64),
+                      "slim.cd"),
     "admm": (dict(algo="admm"), "slim.admm"),
 }
 
@@ -87,6 +94,15 @@ def test_a_profiled_learn_holds_a_span_as_long_as_each_phase(case):
         assert abs(got - secs) <= max(0.05 * secs, 1e-3), (name, got, secs)
     if case == "cd-compact":
         assert any(s[0] == "slim.wait.screen" for s in spans)
+    waits = [s for s in spans if s[0] == "slim.wait.select"]
+    if case == "fslim-compact":
+        select = [s for s in spans if s[0] == "slim.cd.select"]
+        assert len(waits) == stats["fslim"]["blocks"] == 3
+        assert all(_inside(w, select[0]) for w in waits)
+        assert 0 < stats["fslim"]["neighbours"] <= NNBRS * 40
+    else:
+        assert "select" not in stats["phases"] and "fslim" not in stats
+        assert not waits
 
 
 def _block(npad, cap, seed=5, B=8, n=90):
@@ -194,6 +210,8 @@ def _every_spanned_path():
     A = _matrix()
     api.learn(A, SlimConfig(block_size=16), device="cpu")
     api.learn(A, SlimConfig(algo="admm"), device="cpu")
+    api.learn(A, SlimConfig(block_size=16, nnbrs=NNBRS, compact_threshold=64),
+              device="cpu")
     S.solve_core(*_block(512, 200))
     model, hist = _serve()
     predict.predict_topn(model, hist, device="cpu", sparse=False)
