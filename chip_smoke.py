@@ -88,14 +88,16 @@ Phases (any failure exits non-zero, and no result line is printed):
      ids printed, not gated: the JAX package's own trade).  Last, the
      model densified row-major (``predict.densify_model``) against the
      transposed densify plus a transpose copy, in turns, equal.  The learn
-     harvests its blocks behind the next solve (SLIM_HARVEST_CHUNK unset:
-     8 blocks in flight); after the phase's launch counts are read, the
-     same learn runs with SLIM_HARVEST_CHUNK=0 (each block's harvest
-     complete before the next solve) and pipelined once more, each equal
-     to the first entry for entry, the objective bit-equal; one ``ml20m
-     harvest:`` line gives each run's learn_s, phases (the waits
-     solve-sync and pack-fetch among them) and the harvest worker's
-     seconds.  With --profile DIR the learn and predict run under
+     keeps its blocks' entries on the card and assembles the model there
+     (``assembly`` "card").  After the phase's launch counts are read,
+     the same learn runs twice on the host route (the route choice
+     patched, ``assembly`` "host": pinned copies, the worker's completion,
+     the native counting sort), with SLIM_HARVEST_CHUNK=0 (each block's
+     harvest complete before the next solve) and pipelined (unset, 8
+     blocks in flight); card, serial and pipelined are equal entry for
+     entry, the objective bit-equal; one ``ml20m harvest:`` line gives
+     each run's learn_s, phases (the waits solve-sync and pack-fetch among
+     them), the harvest worker's seconds and its route.  With --profile DIR the learn and predict run under
      torch.profiler; device time by kernel and the device idle share (the
      union of the device rows' intervals: the harvest's copies run on a
      stream of their own) go to DIR/profile_ml20m.{txt,json}.
@@ -1673,6 +1675,7 @@ def _learn_predict_ml20m(dev, trn):
     out = dict(nrows=trn.nrows, ncols=trn.ncols, nnz=trn.nnz,
                learn_s=stats["learn_s"], phases=stats["phases"],
                harvest_worker=stats["harvest_worker"],
+               assembly=stats["assembly"],
                sweeps=stats["sweeps"], niters=stats["niters"],
                objective=stats["loss"], fit=stats["fit"],
                model_nnz=stats["nnz"], predict_s=pred_s, predict_users_per_s=trn.nrows / pred_s,
@@ -1694,6 +1697,7 @@ def _learn_predict_ml20m(dev, trn):
 def _harvest_record(stats):
     return dict(learn_s=stats["learn_s"], phases=stats["phases"],
                 harvest_worker=stats["harvest_worker"],
+                assembly=stats["assembly"],
                 objective=stats["loss"], model_nnz=stats["nnz"],
                 sweeps=stats["sweeps"], niters=stats["niters"])
 
@@ -1710,30 +1714,55 @@ def _same_learn(tag, got, ref):
         check(s[k] == t[k], f"{tag}: {k} {s[k]} vs {t[k]}")
 
 
+@contextlib.contextmanager
+def host_route():
+    """CD learns in the block assemble on the host (the route choice
+    patched, as the card tests do); restored after."""
+    from slim_tpu_torch.solvers import cd as C
+
+    old = C.assembly_route
+    C.assembly_route = lambda *a: "host"
+    try:
+        yield
+    finally:
+        C.assembly_route = old
+
+
 def check_harvest_ml20m(dev, trn, rec):
     """Phase 4's harvest check, run after its launch counts are read: the
-    same learn with SLIM_HARVEST_CHUNK=0 (each block's harvest complete
-    before the next solve), then pipelined once more; both equal to phase
-    4's pipelined model entry for entry, the objective bit-equal.  Prints
-    learn_s, phases (with the waits solve-sync and pack-fetch) and the
-    worker's seconds of each."""
+    same learn on the host route with SLIM_HARVEST_CHUNK=0 (each block's
+    harvest complete before the next solve), then on the host route
+    pipelined (8 blocks in flight); both equal to phase 4's card-route
+    model entry for entry, the objective bit-equal.  Prints learn_s,
+    phases (with the waits solve-sync and pack-fetch), the worker's
+    seconds and the route of each."""
     from slim_tpu_torch import SlimConfig, learn
 
     cfg = SlimConfig(l1r=1.0, l2r=1.0, dbglvl=2, **ML20M_CFG)
     first = (_KEPT["ml20m"], dict(loss=rec["objective"], fit=rec["fit"],
                                   niters=rec["niters"],
                                   sweeps=rec["sweeps"]))
-    with env(SLIM_HARVEST_CHUNK="0"):
-        serial = learn(trn, cfg, device=dev)
-    again = learn(trn, cfg, device=dev)
-    out = dict(pipelined=dict(learn_s=rec["learn_s"], phases=rec["phases"],
-                              harvest_worker=rec["harvest_worker"]),
+    with host_route():
+        with env(SLIM_HARVEST_CHUNK="0"):
+            serial = learn(trn, cfg, device=dev)
+        pipelined = learn(trn, cfg, device=dev)
+    out = dict(card=dict(learn_s=rec["learn_s"], phases=rec["phases"],
+                         harvest_worker=rec["harvest_worker"],
+                         assembly=rec["assembly"]),
                serial=_harvest_record(serial[1]),
-               pipelined_again=_harvest_record(again[1]),
-               card=card_line())
+               pipelined=_harvest_record(pipelined[1]),
+               device=card_line())
     print("ml20m harvest:", json.dumps(out), flush=True)
-    _same_learn("ML-20M serial harvest", serial, first)
-    _same_learn("ML-20M pipelined again", again, first)
+    check(rec["assembly"] == "card" and not rec["harvest_worker"],
+          f"the ML-20M learn assembled on the {rec['assembly']}, its "
+          f"worker {rec['harvest_worker']}")
+    for tag, run in (("serial", serial), ("pipelined", pipelined)):
+        check(run[1]["assembly"] == "host"
+              and run[1]["harvest_worker"].get("host", 0) > 0,
+              f"the ML-20M {tag} learn assembled on the "
+              f"{run[1]['assembly']}, its worker {run[1]['harvest_worker']}")
+    _same_learn("ML-20M host serial harvest", serial, first)
+    _same_learn("ML-20M host pipelined harvest", pipelined, first)
     rec["harvest"] = out
     return rec
 

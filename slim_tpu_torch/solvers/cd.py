@@ -14,7 +14,11 @@ fetch, the pack kernel and the maps to item ids on the device, a copy on a
 stream of its own into pinned memory, and the host completion on a worker
 thread, in block order.  The model is assembled by the native runtime's
 counting sort (scipy where no C++ compiler is found; estimate.c:570-593),
-keeping entries > 1e-7 (estimate.c:492-505).
+keeping entries > 1e-7 (estimate.c:492-505).  On the card a learn with no
+checkpoints and no shard keeps each block's entries there instead, sorts
+them there after the last block and copies the finished CSR out once
+(:func:`assembly_route`, :func:`_assemble_on_card`): the same model, entry
+for entry.
 
 Warm starts (estimate.c:453-471) densify each block's x0 on the device
 from runs: the previous model's columns, or the retained pack of the
@@ -160,11 +164,13 @@ class _PackAccum:
 
 class _Block(NamedTuple):
     """One solved block in item space: its model entries (rated item,
-    target item, value) and its column stats summed (err, obj, niters),
-    with ``sweeps`` = the sweeps its solve took (its slowest column's)."""
-    coord: np.ndarray
-    target: np.ndarray
-    vals: np.ndarray
+    target item, value; host arrays, or tensors on the card where the
+    model is assembled there) and its column stats summed (err, obj,
+    niters), with ``sweeps`` = the sweeps its solve took (its slowest
+    column's)."""
+    coord: np.ndarray | torch.Tensor
+    target: np.ndarray | torch.Tensor
+    vals: np.ndarray | torch.Tensor
     err: float
     obj: float
     niters: int
@@ -458,6 +464,28 @@ def _item_space(x, c, J, p32, S=None):
     return fv, fi, p32[cp], p32[J.long()[rows]]
 
 
+def assembly_route(dev, cfg: SlimConfig, shard) -> str:
+    """Where a CD learn assembles its model: "card" on a CUDA device with
+    no ``cfg.checkpoint_dir`` and no ``shard`` (the blocks' entries stay
+    on the card and are sorted there, :func:`_assemble_on_card`), else
+    "host" (:func:`_assemble`: the native counting sort is the faster on
+    the CPU, a checkpoint's ``finish`` writes host blocks, a shard gathers
+    host triplets).  A card learn falls back to "host" while it runs
+    when its entries outgrow the card (:func:`_card_budget`)."""
+    if dev.type == "cuda" and not cfg.checkpoint_dir and shard is None:
+        return "card"
+    return "host"
+
+
+def _card_budget(dev) -> int:
+    """The bytes of entries a learn may hold on the card to sort them
+    there: a quarter of the free memory ``torch.cuda.mem_get_info``
+    reports (the joined copies, the sort's keys, permutation and scratch
+    take up to four times the entries' bytes).  Read once a learn, at its
+    first held block: the query took 0.1-90 ms a call on an H100 machine."""
+    return torch.cuda.mem_get_info(dev)[0] // 4
+
+
 def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                       gram=None, keep_device_model=False, warm_pack=None,
                       device=None, shard=None):
@@ -499,7 +527,11 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     block before the next solve, and gives the same model entry for
     entry.  ``phases`` are the main thread's seconds, the waits
     ``solve-sync`` and ``pack-fetch`` among them; ``harvest_worker`` the
-    worker thread's (``copy``, ``host``, ``checkpoint``)."""
+    worker thread's (``copy``, ``host``, ``checkpoint``).  On the route
+    :func:`assembly_route` gives "card" the blocks' entries stay on the
+    card, copied nowhere, until the assembly sorts them there and copies
+    the CSR out once (:func:`_assemble_on_card`); ``stats["assembly"]``
+    says where the model was assembled, "card" or "host"."""
     if shard is not None and keep_device_model:
         raise ValueError("keep_device_model needs every block on one "
                          "device, not a shard")
@@ -514,7 +546,8 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                              np.zeros(0, np.float32), nrows=n, ncols=n,
                              no_duplicates=True)
         return model, {"loss": 0.0, "fit": 0.0, "ffrac": 0.0, "nnz": 0,
-                       "niters": 0, "sweeps": 0, "phases": {}}
+                       "niters": 0, "sweeps": 0, "phases": {},
+                       "assembly": "host"}
 
     with clock.phase("gram"):
         g, p, p_pad, posmap_pad, caps_p, nnz_col = _rank_space(
@@ -611,7 +644,9 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
 
     def harvest(blk, r0, nJ, J, S, out):
         """The block's counts and stats (one fetch), its pack and item ids
-        on the device, its completion queued on the worker."""
+        on the device, its completion queued on the worker (or, on the
+        card route, its entries held there)."""
+        nonlocal route, held, budget
         x = _solved_items(out[0], n, S)
         c, (niters_h, rstatus_h, rnorm_h, obj_h) = harv.fetch((x, *out[1:]),
                                                               nJ)
@@ -637,11 +672,25 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
             fv, fi, coord, target = _item_space(x, c, J, p32, S)
             if acc is not None:
                 acc.add(c, fv, fi, S)
-            harv.submit((coord, target, fv), finish)
+            if route == "card":
+                held += 12 * fv.numel()
+                budget = _card_budget(dev) if budget is None else budget
+                if held > budget:
+                    # too many entries to sort on the card: the blocks
+                    # held so far go to the host, the rest the host's way
+                    route = "host"
+                    blocks[:] = [_Block(*(a.cpu().numpy() for a in b[:3]),
+                                        *b[3:]) for b in blocks]
+            if route == "card":
+                blocks.append(finish(coord, target, fv))
+            else:
+                harv.submit((coord, target, fv), finish)
 
-    # solve block b+1 while the worker completes block b's harvest
+    # solve block b+1 while the worker completes block b's harvest (or,
+    # on the card route, while its entries wait on the card)
     p32 = torch.from_numpy(p_pad.astype(np.int32)).to(dev)
     harv = _Harvest(dev, clock, harvest_depth())
+    route, held, budget = assembly_route(dev, cfg, shard), 0, None
     blocks = []
     try:
         for blk in mine:
@@ -666,7 +715,8 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         with clock.phase("gather"):
             parts, sums = _gathered(*parts, sums, dev)
     with clock.phase("assembly"):
-        model = _assemble(*parts, n)
+        model = _assemble_on_card(*parts, n) if route == "card" \
+            else _assemble(*parts, n)
     total_err, total_obj, niters, sweeps = sums
     stats = {
         "loss": total_obj,
@@ -677,6 +727,7 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         "sweeps": sweeps,
         "phases": _phases(clock),
         "harvest_worker": dict(harv.worker),
+        "assembly": route,
     }
     if use_compact:
         # coordinate width -> blocks, and each compact block's union (rank
@@ -718,6 +769,33 @@ def _assemble(coord, target, vals, n: int) -> CSR:
     return CSR.from_ijv(_cat(coord, np.int32), _cat(target, np.int32),
                         _cat(vals, np.float32), nrows=n, ncols=n,
                         no_duplicates=True)
+
+
+def _assemble_on_card(coord, target, vals, n: int) -> CSR:
+    """:func:`_assemble` of lists of (rated item int32, target item int32,
+    value float32) tensors on one device: the entries sorted there by the
+    key coord x n + target (int32 while n^2 < 2^31, else int64), the
+    values gathered by the sort's permutation, the row counts' cumulative
+    sum as indptr, then indptr, indices and data copied to the host once,
+    into pageable memory.  Each (row, column) pair appears once, so the
+    keys are unique and any sort gives the one order: the CSR equals
+    ``native.csr_from_blocks``' entry for entry."""
+    if not coord:
+        return CSR.from_arrays(n, n, np.zeros(n + 1, np.int64),
+                               np.zeros(0, np.int32), np.zeros(0, np.float32))
+    rows = torch.cat(coord)
+    indptr = torch.cat([rows.new_zeros(1, dtype=torch.int64),
+                        torch.bincount(rows, minlength=n).cumsum(0)])
+    key = rows.long() * n if n * n >= 2 ** 31 else rows * n
+    del rows
+    key += torch.cat(target)
+    key, perm = torch.sort(key)
+    data = torch.cat(vals)[perm]
+    del perm
+    indices = key.remainder_(n).int()
+    del key
+    return CSR.from_arrays(n, n, indptr.cpu().numpy(),
+                           indices.cpu().numpy(), data.cpu().numpy())
 
 
 def _gathered(coord, target, vals, sums, dev):

@@ -582,9 +582,12 @@ def test_native_route_matches_card_dense(dev, rng, monkeypatch):
 
 def test_ml20m_shaped_assembly_native_equals_scipy(dev, monkeypatch):
     """A quarter-scale ML-20M-shaped learn on the card (wide blocks): the
-    native assembly and scipy's give the same model entry for entry."""
+    card route's assembly (the entries sorted on the card), the native
+    assembly (the host route, forced through the route predicate) and
+    scipy's give the same model entry for entry."""
     from slim_tpu_torch import SlimConfig, learn, native
     from slim_tpu_torch.datagen import synth_ml20m
+    from slim_tpu_torch.solvers import cd as C
 
     trn = synth_ml20m(seed=0, scale=0.25)
     cfg = SlimConfig(l1r=1.0, l2r=1.0, block_size=1024)
@@ -592,15 +595,63 @@ def test_ml20m_shaped_assembly_native_equals_scipy(dev, monkeypatch):
     orig = native.csr_from_blocks
     monkeypatch.setattr(native, "csr_from_blocks",
                         lambda *a: calls.append(1) or orig(*a))
-    m1, _ = learn(trn, cfg, device=dev)
-    assert calls
+    m2, s2 = learn(trn, cfg, device=dev)
+    assert s2["assembly"] == "card" and not calls
+    monkeypatch.setattr(C, "assembly_route", lambda *a: "host")
+    m1, s1 = learn(trn, cfg, device=dev)
+    assert s1["assembly"] == "host" and calls
     monkeypatch.setattr(native, "available", lambda: False)   # scipy's
-    m0, _ = learn(trn, cfg, device=dev)
-    assert len(calls) == 1
-    assert m1.nnz == m0.nnz > 0
-    np.testing.assert_array_equal(m1.indptr, m0.indptr)
-    np.testing.assert_array_equal(m1.indices, m0.indices)
-    np.testing.assert_array_equal(m1.data, m0.data)
+    m0, s0 = learn(trn, cfg, device=dev)
+    assert s0["assembly"] == "host" and len(calls) == 1
+    assert m2.nnz == m1.nnz == m0.nnz > 0
+    for m in (m2, m1):
+        np.testing.assert_array_equal(m.indptr, m0.indptr)
+        np.testing.assert_array_equal(m.indices, m0.indices)
+        np.testing.assert_array_equal(m.data, m0.data)
+        assert m.indices.dtype == m0.indices.dtype
+        assert m.data.dtype == m0.data.dtype
+
+
+def test_checkpointed_card_learn_takes_host_route(dev, tmp_path):
+    """A checkpointed learn on the card assembles on the host and gives
+    the model of the same learn without checkpoints, which assembles on
+    the card, entry for entry."""
+    from slim_tpu_torch import SlimConfig, learn
+
+    mat = random_csr(np.random.default_rng(12), 600, 500, density=0.05,
+                     implicit=True)
+    m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices, None)
+    cfg = SlimConfig(l1r=0.5, l2r=0.5, block_size=128)
+    m1, s1 = learn(m, cfg, device=dev)
+    m2, s2 = learn(m, cfg.replace(checkpoint_dir=str(tmp_path)), device=dev)
+    assert s1["assembly"] == "card" and s2["assembly"] == "host"
+    assert m1.nnz == m2.nnz > 0
+    np.testing.assert_array_equal(m1.indptr, m2.indptr)
+    np.testing.assert_array_equal(m1.indices, m2.indices)
+    np.testing.assert_array_equal(m1.data, m2.data)
+    assert s1["loss"] == s2["loss"]
+
+
+def test_card_assembly_peak_memory(dev, monkeypatch):
+    """The card route's learn (entries held on the card, sorted there)
+    reaches no higher ``max_memory_allocated`` than the host route's at
+    a quarter-scale ML-20M shape."""
+    from slim_tpu_torch import SlimConfig, learn
+    from slim_tpu_torch.datagen import synth_ml20m
+    from slim_tpu_torch.solvers import cd as C
+
+    trn = synth_ml20m(seed=0, scale=0.25)
+    cfg = SlimConfig(l1r=1.0, l2r=1.0, block_size=1024)
+    peaks = {}
+    for route in ("card", "host"):
+        monkeypatch.setattr(C, "assembly_route", lambda *a, r=route: r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, st = learn(trn, cfg, device=dev)
+        torch.cuda.synchronize()
+        assert st["assembly"] == route
+        peaks[route] = torch.cuda.max_memory_allocated(dev)
+    assert peaks["card"] <= peaks["host"], peaks
 
 
 def test_one_history_upload_per_card(dev):
@@ -799,10 +850,12 @@ def test_kept_split_on_card_equals_a_fresh_one(dev, rng, monkeypatch):
 @pytest.mark.parametrize("shape", ["npad384", "compact"])
 def test_pipelined_harvest_on_card_equals_serial(dev, monkeypatch, shape):
     """The learn on the card with the harvest behind the solves (copies on
-    the copy stream into pinned memory, the worker's completion) equals
-    the SLIM_HARVEST_CHUNK=0 learn entry for entry, with equal stats and
-    one pack launch a block in both: at npad 384 (the vendored synth set's
-    300 items) and on compact blocks (ids through S)."""
+    the copy stream into pinned memory, the worker's completion: the host
+    route, forced through the route predicate) equals the
+    SLIM_HARVEST_CHUNK=0 learn entry for entry, with equal stats and one
+    pack launch a block in both: at npad 384 (the vendored synth set's
+    300 items) and on compact blocks (ids through S).  So does the card
+    route's learn, which copies no block out."""
     import os
 
     from slim_tpu_torch import SlimConfig
@@ -829,13 +882,17 @@ def test_pipelined_harvest_on_card_equals_serial(dev, monkeypatch, shape):
 
     monkeypatch.setattr(C._Harvest, "submit", submit)
     runs = []
-    for depth in ("0", "3", None):
-        if depth is None:
+    for depth in ("0", "3", None, "card"):
+        if depth is None or depth == "card":
             monkeypatch.delenv("SLIM_HARVEST_CHUNK", raising=False)
         else:
             monkeypatch.setenv("SLIM_HARVEST_CHUNK", depth)
-        packs = P.pack.launches
+        route = "card" if depth == "card" else "host"
+        monkeypatch.setattr(C, "assembly_route", lambda *a, r=route: r)
+        packs, copies = P.pack.launches, len(streams)
         model, stats = C.estimate_model_cd(m, cfg, device=dev)
+        assert stats["assembly"] == route
+        assert (len(streams) == copies) == (route == "card")
         runs.append((model, stats, P.pack.launches - packs))
     nblocks = -(-m.ncols // cfg.block_size)
     assert streams and all(s is not None for s in streams)

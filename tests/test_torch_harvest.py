@@ -358,6 +358,105 @@ def test_grid_pipelined_equals_serial(monkeypatch, depth):
 
 
 # --------------------------------------------------------------------- #
+# the card route's assembly, run on CPU tensors
+# --------------------------------------------------------------------- #
+# n^2 < 2^31 up to n = 46,340
+WIDE_N = {"wide": 50_000, "edge32": 46_340, "edge64": 46_341}
+
+
+def _fragments(case):
+    """(row, column, value) fragments with each pair once, and n: pairs
+    in shuffled order over fragments of any length (one empty) with empty
+    rows; no fragment at all; a full row of n - 1 columns; and, with
+    entries at ids near n - 1, an n with n^2 >= 2^31 (the int64 key) and
+    the last n of the int32 key and the first of the int64 one."""
+    rng = np.random.default_rng(17)
+    if case == "none":
+        return [], 4
+    if case in WIDE_N:
+        n = WIDE_N[case]
+        r = np.array([n - 1, 0, n - 2, n - 1, n - 3, 7], np.int32)
+        c = np.array([n - 2, n - 1, n - 1, 0, n - 3, n - 1], np.int32)
+        cuts = [0, 2, 2, 6]
+    else:
+        n = 57 if case == "shuffled" else 30
+        pairs = rng.permutation(n * n)[:300]
+        r, c = (pairs // n).astype(np.int32), (pairs % n).astype(np.int32)
+        keep = r != 11                            # row 11 empty
+        if case == "full_row":
+            keep &= r != 4
+        r, c = r[keep], c[keep]
+        if case == "full_row":                    # row 4: every other column
+            cols = rng.permutation(np.setdiff1d(np.arange(n), [4]))
+            r = np.concatenate([r, np.full(n - 1, 4, np.int32)])
+            c = np.concatenate([c, cols.astype(np.int32)])
+            order = rng.permutation(r.size)
+            r, c = r[order], c[order]
+        cuts = [0, 13, 13, 14, 90, r.size]
+    v = rng.random(r.size).astype(np.float32)
+    return [(r[a:b], c[a:b], v[a:b]) for a, b in zip(cuts, cuts[1:])], n
+
+
+@pytest.mark.parametrize("case", ["shuffled", "none", "full_row",
+                                  *WIDE_N])
+def test_card_assembly_equals_native(case):
+    """``_assemble_on_card`` on CPU tensors: entry for entry the native
+    counting sort's CSR and scipy's over the concatenation."""
+    from slim_tpu_torch import native
+
+    frags, n = _fragments(case)
+    lists = [[f[i] for f in frags] for i in range(3)]
+    got = C._assemble_on_card(
+        *[[torch.from_numpy(a) for a in lst] for lst in lists], n)
+    indptr, indices, data = native.csr_from_blocks(*lists, n)
+    cat = [np.concatenate(lst) if lst else np.zeros(0, dt)
+           for lst, dt in zip(lists, (np.int32, np.int32, np.float32))]
+    want = CSR.from_ijv(*cat, nrows=n, ncols=n, no_duplicates=True)
+    assert got.shape == (n, n) and got.nnz == want.nnz == indices.size
+    for a, b in ((got.indptr, indptr), (got.indices, indices),
+                 (got.values(), data), (got.indptr, want.indptr),
+                 (got.indices, want.indices), (got.values(), want.values())):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    if case == "full_row":
+        assert got.indptr[5] - got.indptr[4] == n - 1
+    if case in ("shuffled", "full_row"):
+        assert got.indptr[12] == got.indptr[11]
+
+
+@pytest.mark.parametrize("spill", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_card_route_learn_equals_host(monkeypatch, case, spill):
+    """The learn with the card route forced on the CPU (the blocks'
+    entries held, then ``_assemble_on_card``) equals the host route's
+    serial learn; with the card's room for half the model's entries,
+    the blocks held by then go to the host and the learn ends on the host
+    route, the same model again."""
+    ref = _serial(case)          # on the host route, before the patches
+    monkeypatch.setattr(C, "assembly_route", lambda *a: "card")
+    # room for half the model's entries, or for all of them
+    monkeypatch.setattr(C, "_card_budget", lambda dev: 12 * ref[0].nnz
+                        // (2 if spill else 1))
+    got = _run(monkeypatch, None, case, "cold")
+    _same(got, ref)
+    assert ref[1]["assembly"] == "host"
+    assert got[1]["assembly"] == ("host" if spill else "card")
+    assert not got[1]["harvest_worker"] or spill
+
+
+def test_assembly_route_choice():
+    """The card route only on a CUDA device with no checkpoints and no
+    shard: the CPU, a checkpoint_dir and a shard keep the host's."""
+    cfg, cuda = SlimConfig(), torch.device("cuda")
+    assert C.assembly_route(cuda, cfg, None) == "card"
+    assert C.assembly_route(torch.device("cpu"), cfg, None) == "host"
+    assert C.assembly_route(cuda, cfg.replace(checkpoint_dir="ck"),
+                            None) == "host"
+    assert C.assembly_route(cuda, cfg, (0, 2)) == "host"
+    assert _serial("synth")[1]["assembly"] == "host"
+
+
+# --------------------------------------------------------------------- #
 # the replicated distributed learn (shard=), two gloo ranks
 # --------------------------------------------------------------------- #
 def test_shard_learn_pipelined_equals_serial():
