@@ -90,17 +90,16 @@ Phases (any failure exits non-zero, and no result line is printed):
      transposed densify plus a transpose copy, in turns, equal.  The learn
      keeps its blocks' entries on the card and assembles the model there
      (``assembly`` "card").  After the phase's launch counts are read,
-     the same learn runs twice on the host route (the route choice
-     patched, ``assembly`` "host": pinned copies, the worker's completion,
-     the native counting sort), with SLIM_HARVEST_CHUNK=0 (each block's
-     harvest complete before the next solve) and pipelined (unset, 8
-     blocks in flight); card, serial and pipelined are equal entry for
-     entry, the objective bit-equal; one ``ml20m harvest:`` line gives
-     each run's learn_s, phases (the waits solve-sync and pack-fetch among
-     them), the harvest worker's seconds and its route.  With --profile DIR the learn and predict run under
-     torch.profiler; device time by kernel and the device idle share (the
-     union of the device rows' intervals: the harvest's copies run on a
-     stream of their own) go to DIR/profile_ml20m.{txt,json}.
+     the same learn runs again, its held blocks also assembled by
+     ``native.csr_from_blocks`` on the host, and once more with its
+     entries moved to host memory at block 1 (the card's budget patched,
+     ``assembly`` "host"); phase 4's model, the native one and the moved
+     learn's are equal entry for entry, the objective bit-equal; one
+     ``ml20m harvest:`` line gives each run's learn_s, phases (the wait
+     solve-sync among them) and ``assembly``.  With --profile DIR the
+     learn and predict run under torch.profiler; device time by kernel
+     and the device idle share (the union of the device rows' intervals)
+     go to DIR/profile_ml20m.{txt,json}.
   5. model selection (mselect_pairs) over (2, 2) -> (1, 1) with
      SLIM_PALLAS_V4=0, so every wide block takes the v3 sweep; the test set
      is a held-out draw with the same popularity law.  The warm (1, 1)
@@ -138,9 +137,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      cold learn of it on the card, (1, 1) against the JAX package's, HR /
      ARHR against the sequential walk's, the same best pair; cols/s of the
      packed pass and of the walk.  After the counts are read,
-     estimate_grid_cd over the same points pipelined and with
-     SLIM_HARVEST_CHUNK=0, every point equal entry for entry (``grid
-     harvest:``, each pass's seconds and phases).
+     estimate_grid_cd over the same points with its entries held on the
+     card and moved to host memory at the first block, every point equal
+     entry for entry (``grid harvest:``, each pass's seconds and
+     phases).
   10b. estimate_grid_cd over (2, 2), (1, 1) on the ML-20M matrix (v4):
      (1, 1) against the JAX package's, (2, 2) against phase 5's cold point;
      its phases printed.
@@ -149,8 +149,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      the learn resumed, its sweeps and packs those of the deleted blocks
      only, each re-solved block within CKPT_RESOLVE_ATOL of its first
      solve; a full restore launches no sweep and no pack; the directory
-     removed.  The block files are written by the harvest's worker thread
-     in block order (``write_s``: its seconds of writes).
+     removed.  The block files are written in block order in the phase
+     ``checkpoint`` (``write_s``: its seconds).
   12. the SLIM / SLIMatrix classes at the ML-1M shape from (user, item,
      rating) triplets: train -> predict (no device given) -> save_model /
      load_model -> predict, against api.learn + get_topn, the matrix's ids
@@ -186,9 +186,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      objective and nnz when the synth time scaled by columns x ratings
      predicts it within 60 s (else a line says it was left out); phase 4's
      model cut into 27 shuffled COO fragments and assembled through
-     solvers.cd._assemble (the native counting sort) and through scipy's
-     CSR.from_ijv over their concatenation (its path without a compiler),
-     both equal to the model entry for entry, both timed; the native predict
+     native.csr_from_blocks (the native counting sort) and through
+     solvers.cd._assemble on the card (the learn's assembly), both equal
+     to the model entry for entry, both timed; the native predict
      route against the card's dense route (the model densified in the
      call, and resident) on the synth set, the ML-1M shape, the ML-20M
      FSLIM model (every user), the first 16,384 users of phase 4's model,
@@ -200,9 +200,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      must be the faster one wherever they differ by more than 1.25x (the
      check comes last in the phase); native.gram_dense at the
      ML-1M shape equal to the card's Gram; both tokenisers on the ML-1M
-     shape written as a csr file; ``SLIM_BENCH_SMALL=1 python3
-     bench_torch.py`` in a process of its own, its objective within 1e-4
-     rel of its native baseline's.  Every earlier phase pins its predict
+     shape written as a csr file.  After the phase's launch counts are
+     read, the CD learn on the card at a synthetic ml100k shape
+     (``check_cd_small``), its objective within 1e-4 rel of the native
+     CPU solver's.  Every earlier phase pins its predict
      route (``sparse=``, ``W_dev`` or SLIM_PREDICT_NATIVE_NPAD=0 around a
      call that takes neither), so it measures the route it measured before
      the native route was added; phase 4's top-N is unpinned and must stay
@@ -1601,8 +1602,8 @@ def run_serve(dev, noracle=1024):
 
 def device_busy_s(prof):
     """Seconds in which the card ran anything (kernels, copies, memsets) in
-    a profiled run: the union of their intervals, since the harvest's
-    copies run on a stream of their own beside the compute stream."""
+    a profiled run: the union of their intervals, so that work on any
+    stream counts once."""
     from torch.autograd import DeviceType
 
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -1674,7 +1675,6 @@ def _learn_predict_ml20m(dev, trn):
     pred_s = time.perf_counter() - t0
     out = dict(nrows=trn.nrows, ncols=trn.ncols, nnz=trn.nnz,
                learn_s=stats["learn_s"], phases=stats["phases"],
-               harvest_worker=stats["harvest_worker"],
                assembly=stats["assembly"],
                sweeps=stats["sweeps"], niters=stats["niters"],
                objective=stats["loss"], fit=stats["fit"],
@@ -1696,7 +1696,6 @@ def _learn_predict_ml20m(dev, trn):
 
 def _harvest_record(stats):
     return dict(learn_s=stats["learn_s"], phases=stats["phases"],
-                harvest_worker=stats["harvest_worker"],
                 assembly=stats["assembly"],
                 objective=stats["loss"], model_nnz=stats["nnz"],
                 sweeps=stats["sweeps"], niters=stats["niters"])
@@ -1715,54 +1714,71 @@ def _same_learn(tag, got, ref):
 
 
 @contextlib.contextmanager
-def host_route():
-    """CD learns in the block assemble on the host (the route choice
-    patched, as the card tests do); restored after."""
-    from slim_tpu_torch.solvers import cd as C
-
-    old = C.assembly_route
-    C.assembly_route = lambda *a: "host"
+def patched(module, **attrs):
+    """``module``'s attributes set to ``attrs`` inside the block, restored
+    after."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
     try:
         yield
     finally:
-        C.assembly_route = old
+        for k, v in old.items():
+            setattr(module, k, v)
 
 
 def check_harvest_ml20m(dev, trn, rec):
     """Phase 4's harvest check, run after its launch counts are read: the
-    same learn on the host route with SLIM_HARVEST_CHUNK=0 (each block's
-    harvest complete before the next solve), then on the host route
-    pipelined (8 blocks in flight); both equal to phase 4's card-route
-    model entry for entry, the objective bit-equal.  Prints learn_s,
-    phases (with the waits solve-sync and pack-fetch), the worker's
-    seconds and the route of each."""
-    from slim_tpu_torch import SlimConfig, learn
+    same learn again with its entries held on the card, its held blocks
+    also assembled by ``native.csr_from_blocks`` (copied to the host),
+    then with its entries moved to host memory at block 1 (the card's
+    budget patched to block 0's bytes) and sorted there; phase 4's model,
+    the native one and the moved learn's equal entry for entry, the
+    objective bit-equal.  Prints learn_s, phases and ``assembly`` of each
+    and the native assembly's entries and seconds."""
+    from slim_tpu_torch import SlimConfig, learn, native
+    from slim_tpu_torch.solvers import cd as C
+    from slim_tpu_torch.types import CSR
 
     cfg = SlimConfig(l1r=1.0, l2r=1.0, dbglvl=2, **ML20M_CFG)
     first = (_KEPT["ml20m"], dict(loss=rec["objective"], fit=rec["fit"],
                                   niters=rec["niters"],
                                   sweeps=rec["sweeps"]))
-    with host_route():
-        with env(SLIM_HARVEST_CHUNK="0"):
-            serial = learn(trn, cfg, device=dev)
-        pipelined = learn(trn, cfg, device=dev)
-    out = dict(card=dict(learn_s=rec["learn_s"], phases=rec["phases"],
-                         harvest_worker=rec["harvest_worker"],
-                         assembly=rec["assembly"]),
-               serial=_harvest_record(serial[1]),
-               pipelined=_harvest_record(pipelined[1]),
+    seen = {}
+    real = C._assemble
+
+    def both(coord, target, vals, n):
+        seen["block0"] = len(vals[0])
+        host = [[a.cpu().numpy() for a in lst]
+                for lst in (coord, target, vals)]
+        t0 = time.perf_counter()
+        seen["native"] = CSR.from_arrays(
+            n, n, *native.csr_from_blocks(*host, n))
+        seen["native_s"] = time.perf_counter() - t0
+        return real(coord, target, vals, n)
+
+    with patched(C, _assemble=both):
+        held = learn(trn, cfg, device=dev)
+    budget = 12 * seen["block0"]
+    with patched(C, _card_budget=lambda d: budget):
+        moved = learn(trn, cfg, device=dev)
+    nat = seen["native"]
+    out = dict(first=dict(learn_s=rec["learn_s"], phases=rec["phases"],
+                          assembly=rec["assembly"]),
+               held=_harvest_record(held[1]),
+               moved=_harvest_record(moved[1]),
+               native=dict(entries=nat.nnz, s=seen["native_s"]),
                device=card_line())
     print("ml20m harvest:", json.dumps(out), flush=True)
-    check(rec["assembly"] == "card" and not rec["harvest_worker"],
-          f"the ML-20M learn assembled on the {rec['assembly']}, its "
-          f"worker {rec['harvest_worker']}")
-    for tag, run in (("serial", serial), ("pipelined", pipelined)):
-        check(run[1]["assembly"] == "host"
-              and run[1]["harvest_worker"].get("host", 0) > 0,
-              f"the ML-20M {tag} learn assembled on the "
-              f"{run[1]['assembly']}, its worker {run[1]['harvest_worker']}")
-    _same_learn("ML-20M host serial harvest", serial, first)
-    _same_learn("ML-20M host pipelined harvest", pipelined, first)
+    check(rec["assembly"] == held[1]["assembly"] == "card",
+          f"the ML-20M learns assembled on the {rec['assembly']} and the "
+          f"{held[1]['assembly']}")
+    check(moved[1]["assembly"] == "host",
+          f"the moved ML-20M learn assembled on the "
+          f"{moved[1]['assembly']}")
+    _same_learn("ML-20M held learn again", held, first)
+    _same_learn("ML-20M native assembly", (nat, held[1]), first)
+    _same_learn("ML-20M learn moved to host memory", moved, first)
     rec["harvest"] = out
     return rec
 
@@ -2039,27 +2055,28 @@ def run_grid(dev):
 
 def check_harvest_grid(dev, rec):
     """Phase 10's harvest check, run after its launch counts are read:
-    estimate_grid_cd over the same points at the ML-1M shape, pipelined
-    (the default) and with SLIM_HARVEST_CHUNK=0, every point's model equal
-    entry for entry and its stats bit-equal; each pass's seconds and
-    phases printed."""
+    estimate_grid_cd over the same points at the ML-1M shape, its entries
+    held on the card and moved to host memory at the first block (the
+    card's budget patched to 0), every point's model equal entry for
+    entry and its stats bit-equal; each pass's seconds and phases
+    printed."""
     from slim_tpu_torch import SlimConfig
     from slim_tpu_torch.datagen import synth_implicit
-    from slim_tpu_torch.solvers.cd import estimate_grid_cd
+    from slim_tpu_torch.solvers import cd as C
 
     trn = synth_implicit(*ML1M_SHAPE, seed=0)
     cfg = SlimConfig(**ML1M_CFG)
     points = [(l1, l2) for l1 in GRID_L1 for l2 in GRID_L2]
-    pipe, t_pipe = _timed(lambda: estimate_grid_cd(trn, cfg, points,
-                                                   device=dev))
-    with env(SLIM_HARVEST_CHUNK="0"):
-        serial, t_serial = _timed(lambda: estimate_grid_cd(trn, cfg, points,
-                                                           device=dev))
-    out = dict(pipelined=dict(grid_s=t_pipe, phases=pipe[0][1]["phases"]),
-               serial=dict(grid_s=t_serial, phases=serial[0][1]["phases"]))
+    held, t_held = _timed(lambda: C.estimate_grid_cd(trn, cfg, points,
+                                                     device=dev))
+    with patched(C, _card_budget=lambda d: 0):
+        moved, t_moved = _timed(lambda: C.estimate_grid_cd(
+            trn, cfg, points, device=dev))
+    out = dict(held=dict(grid_s=t_held, phases=held[0][1]["phases"]),
+               moved=dict(grid_s=t_moved, phases=moved[0][1]["phases"]))
     print("grid harvest:", json.dumps(out), flush=True)
-    for pt, got, ref in zip(points, pipe, serial):
-        _same_learn(f"grid {pt} serial harvest", ref, got)
+    for pt, got, ref in zip(points, moved, held):
+        _same_learn(f"grid {pt} moved to host memory", got, ref)
     rec["harvest"] = out
     return rec
 
@@ -2115,7 +2132,6 @@ def run_checkpoint(dev, trn, phase4):
             c0 = _launch_counts()
             model, stats = learn(trn, cfg, device=dev)
             runs.append(dict(learn_s=stats["learn_s"], phases=stats["phases"],
-                             harvest_worker=stats["harvest_worker"],
                              sweeps=stats["sweeps"], objective=stats["loss"],
                              model_nnz=stats["nnz"],
                              launches={k: v for k, v in _since(c0).items()
@@ -2147,7 +2163,7 @@ def run_checkpoint(dev, trn, phase4):
     bit_equal = m2 == m1 and np.array_equal(m2.values(), m1.values())
     out = dict(blocks=len(files), lost=len(lost), runs=runs,
                resolved_max_abs_diff=max(diff), resolved_bit_equal=bit_equal,
-               write_s=runs[0]["harvest_worker"].get("checkpoint"),
+               write_s=runs[0]["phases"].get("checkpoint"),
                restore_s=runs[2]["phases"].get("restore"))
     print("checkpoint:", json.dumps(out))
     r1, r2, r3 = runs
@@ -2478,18 +2494,15 @@ def _native_vs_card(tag, model, hist, dev):
     return out
 
 
-def _native_assembly(model):
+def _native_assembly(model, dev):
     """Phase 4's model as NATIVE_FRAGMENTS shuffled COO fragments,
-    assembled by ``_assemble`` (native) and by scipy over their
-    concatenation, as ``_assemble`` does without a compiler (in turns,
-    twice each): both equal to the model entry for entry."""
+    assembled by ``native.csr_from_blocks`` (the native counting sort, on
+    host arrays) and by the learn's ``solvers.cd._assemble`` (the sort on
+    the card, the fragments uploaded first; in turns, twice each): both
+    equal to the model entry for entry."""
+    from slim_tpu_torch import native
     from slim_tpu_torch.solvers.cd import _assemble
     from slim_tpu_torch.types import CSR
-
-    def scipy_assemble(coord, target, vals, n):
-        return CSR.from_ijv(np.concatenate(coord), np.concatenate(target),
-                            np.concatenate(vals), nrows=n, ncols=n,
-                            no_duplicates=True)
 
     rows = np.repeat(np.arange(model.nrows, dtype=np.int32),
                      np.diff(model.indptr))
@@ -2498,17 +2511,58 @@ def _native_assembly(model):
     frags = ([rows[c] for c in cuts], [model.indices[c] for c in cuts],
              [model.data[c] for c in cuts])
     del rows
-    secs = {"native": [], "scipy": []}
-    for kind in ("native", "scipy", "scipy", "native"):
-        fn = _assemble if kind == "native" else scipy_assemble
-        got, t = _timed(lambda: fn(*frags, model.nrows))
+    on_card = [[torch.from_numpy(a).to(dev) for a in lst] for lst in frags]
+    fns = {"native": lambda: CSR.from_arrays(
+               model.nrows, model.nrows,
+               *native.csr_from_blocks(*frags, model.nrows)),
+           "card": lambda: _assemble(*on_card, model.nrows)}
+    secs = {"native": [], "card": []}
+    for kind in ("native", "card", "card", "native"):
+        got, t = _timed(fns[kind])
         secs[kind].append(t)
         check(np.array_equal(got.indptr, model.indptr)
               and np.array_equal(got.indices, model.indices)
               and np.array_equal(got.data, model.data),
               f"the {kind} assembly differs from the model")
+    del on_card
     return dict(entries=model.nnz, fragments=NATIVE_FRAGMENTS,
-                native_s=secs["native"], scipy_s=secs["scipy"])
+                native_s=secs["native"], card_s=secs["card"])
+
+
+def check_cd_small(dev, rec):
+    """Phase 14's last check, run after its launch counts are read (its
+    learn launches the CD kernels): the CD learn (l1r = l2r = 1, optTol
+    1e-7, block_size 1024) on the card and the native all-core CPU
+    solver on a synthetic ml100k-shaped matrix (943 x 1,682, 100k
+    ratings 1-5, the items by ``datagen.zipf``, so it is the same matrix
+    under any numpy), the card's objective within 1e-4 rel of the
+    native solver's; each one's seconds, objective and model nnz
+    printed."""
+    from slim_tpu_torch import SlimConfig, learn, native
+    from slim_tpu_torch.datagen import zipf
+    from slim_tpu_torch.types import CSR
+
+    rng = np.random.default_rng(0)
+    nrows, ncols, nnz = 943, 1682, 100000
+    users = rng.integers(0, nrows, nnz)
+    items = (zipf(rng, 1.3, nnz * 2) % ncols)[:nnz]
+    vals = rng.integers(1, 6, nnz).astype(np.float32)
+    trn = CSR.from_ijv(users, items, vals, nrows, ncols).infer_ncols()
+    kw = dict(l1r=1.0, l2r=1.0, optTol=1e-7, maxniters=10000)
+    (model, stats), t = _timed(lambda: learn(
+        trn, SlimConfig(block_size=1024, **kw), device=dev))
+    (cpu_model, _, cpu_obj), cpu_t = _timed(
+        lambda: native.cd_learn(trn, nthreads=0, **kw))
+    out = dict(shape=[trn.nrows, trn.ncols, trn.nnz], learn_s=t,
+               objective=stats["loss"], model_nnz=model.nnz,
+               cpu_learn_s=cpu_t, cpu_objective=cpu_obj,
+               cpu_model_nnz=cpu_model.nnz, cpu_threads=os.cpu_count())
+    print("native cd small:", json.dumps(out), flush=True)
+    check(abs(out["objective"] - cpu_obj) <= 1e-4 * abs(cpu_obj),
+          f"the card's objective {out['objective']} vs the native CPU "
+          f"solver's {cpu_obj}")
+    rec["cd_small"] = out
+    return rec
 
 
 def run_native(dev, trn, build_s, phase4):
@@ -2554,8 +2608,8 @@ def run_native(dev, trn, build_s, phase4):
               f"columns x ratings predicts {guess:.1f} s, over the "
               f"{NATIVE_ML1M_BUDGET_S} s budget", flush=True)
 
-    # the assembly of phase 4's model, native and scipy
-    out["assembly"] = _native_assembly(_KEPT["ml20m"])
+    # the assembly of phase 4's model, native and on the card
+    out["assembly"] = _native_assembly(_KEPT["ml20m"], dev)
     out["assembly"]["phase4_assembly_s"] = phase4["phases"].get("assembly")
     print("native assembly:", json.dumps(out["assembly"]), flush=True)
 
@@ -2611,22 +2665,6 @@ def run_native(dev, trn, build_s, phase4):
           and np.array_equal(back.indices, m1.indices),
           "the csr file reads back another matrix")
 
-    # bench_torch.py at its small workload, in a process of its own
-    torch.cuda.empty_cache()
-    proc, bench_s = _timed(lambda: subprocess.run(
-        [sys.executable, os.path.join(HERE, "bench_torch.py")], cwd=HERE,
-        env=dict(os.environ, SLIM_BENCH_SMALL="1"), capture_output=True,
-        text=True, timeout=600))
-    check(proc.returncode == 0,
-          f"bench_torch.py failed:\n{proc.stderr[-3000:]}")
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
-    out["bench_torch_small"] = dict(line, process_s=bench_s)
-    print("native bench_torch:", json.dumps(out["bench_torch_small"]),
-          flush=True)
-    check(abs(line["objective"] - line["cpu_objective"])
-          <= 1e-4 * abs(line["cpu_objective"]),
-          f"bench_torch objective {line['objective']} vs the native "
-          f"baseline's {line['cpu_objective']}")
     check(not wrong, f"unpinned calls took the slower route by more than "
           f"{ROUTE_MARGIN}x (route, faster): {wrong}")
     return out
@@ -2966,7 +3004,8 @@ def main(argv=None):
     # them after its counts
     gates = {"cli": lambda run: check_cli(dev, run),
              "ml20m": lambda run: check_harvest_ml20m(dev, trn, run),
-             "grid": lambda run: check_harvest_grid(dev, run)}
+             "grid": lambda run: check_harvest_grid(dev, run),
+             "native": lambda run: check_cd_small(dev, run)}
     for path, drive in drives:
         for w in wrappers.values():
             w.launches = 0

@@ -4,8 +4,8 @@
 // Components:
 //   * slim_cd_learn  - OpenMP coordinate-descent SLIM solver over CSC
 //     columns.  Implements the same per-column elastic-net nonneg problem
-//     as the device solver (slim_tpu_torch/ops/cd_kernel.py); used as the
-//     measured CPU baseline in bench_torch.py and as a cross-check oracle.
+//     as the device solver (slim_tpu_torch/ops/cd_kernel.py); used as a
+//     cross-check oracle.
 //     Written from the mathematical spec:
 //       min 1/2||y - Ax||^2 + l2r/2||x||^2 + l1r||x||_1,  x >= 0, x_j = 0
 //     active set {i != j : a_i.y > l1r}; coordinate update
@@ -17,7 +17,8 @@
 //   * slim_predict_topn - per-user sparse top-N: the small-catalogue
 //     predict route (predict.native_predict_applicable).
 //   * slim_parse_tokens - fast text tokeniser for the csr/cluto formats.
-//   * slim_csr_from_blocks - threaded CSR assembly of the learned model.
+//   * slim_csr_from_blocks - threaded CSR assembly from COO fragments: the
+//     reference the learn's own assembly (solvers/cd._assemble) is held to.
 //
 // Exposed via a plain C ABI for ctypes (no pybind11 dependency).
 

@@ -47,11 +47,10 @@ chooses among the three wide-block sweeps as the JAX package does.
 from __future__ import annotations
 
 import os
-import weakref
 
 import torch
 
-from ..utils import span
+from ..utils import kept, span
 from . import _build
 from .cd_kernel import CHUNK, block_stats
 
@@ -74,25 +73,14 @@ def split_bf16(G):
     return hi, (G - hi.to(torch.float32)).to(torch.bfloat16)
 
 
-_SPLIT = {}
+_SPLIT = {}   # the one kept split of G (utils.kept)
 
 
 def _split_of(G):
     """:func:`split_bf16` of ``G``, made once and kept while G lives
     unchanged (same object, same version counter): G is loop-invariant
     across the sweeps of a solve and the blocks of a learn."""
-    hit = _SPLIT.get("G")
-    if hit is not None and hit[0]() is G and hit[1] == G._version:
-        return hit[2]
-
-    def drop(ref):
-        if _SPLIT.get("G", (None,))[0] is ref:
-            del _SPLIT["G"]
-
-    _SPLIT.clear()
-    pair = split_bf16(G)
-    _SPLIT["G"] = (weakref.ref(G, drop), G._version, pair)
-    return pair
+    return kept(_SPLIT, "G", G, lambda: split_bf16(G))[0]
 
 
 def _gs_chain(gjl, xl, ql, okf, d, gcc, l1, l2):

@@ -79,15 +79,16 @@ def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def all_gather_triplets(coord, target, vals, device, group=None):
-    """Every rank's (coord, target, value) host arrays, concatenated in rank
-    order; one gather of (N, 3) int32 rows with the float32 values
-    bit-cast."""
-    rows = np.stack([np.asarray(coord, np.int32), np.asarray(target, np.int32),
-                     np.asarray(vals, np.float32).view(np.int32)], axis=1)
-    t = torch.from_numpy(rows).to(wire(group, device))
-    out = all_gather_rows(t, group).cpu().numpy()
-    return out[:, 0], out[:, 1], np.ascontiguousarray(out[:, 2]).view(
-        np.float32)
+    """Every rank's (coord int32, target int32, value float32) tensors,
+    concatenated in rank order, on the device of ``coord``: one gather of
+    (N, 3) int32 rows with the values bit-cast, through ``device`` (the
+    rank's card) on a NCCL group."""
+    rows = torch.stack([coord.int(), target.int(),
+                        vals.float().view(torch.int32)], dim=1)
+    out = all_gather_rows(rows.to(wire(group, device)), group) \
+        .to(coord.device)
+    return (out[:, 0].contiguous(), out[:, 1].contiguous(),
+            out[:, 2].contiguous().view(torch.float32))
 
 
 def all_gather_host(x: np.ndarray, device, group=None) -> np.ndarray:

@@ -45,9 +45,9 @@ from ..ops.cd_sweep import pick_large_variant
 from ..ops.densify import densify_runs
 from ..ops.gram import _is_binary, gram_partial, pin_f32
 from ..predict import _steps
-from ..solvers.cd import (_Block, _Checkpoint, _assemble,
-                          _col_stats, _pack_block, bucket_npad,
-                          estimate_grid_cd, estimate_model_cd, pick_impl)
+from ..solvers.cd import (_Block, _Checkpoint, _Held, _assemble, _harvest,
+                          bucket_npad, estimate_grid_cd, estimate_model_cd,
+                          pick_impl)
 from ..types import CSR
 from . import comm
 from .mesh import mesh_device
@@ -253,8 +253,11 @@ def _superblocks_solve(R: _Ranked, cfg, flags_cb, gs_cb, imodel,
     superblock of Bsup target ranks, the screen (``flags_cb``), the
     union S with the targets, the compact Gram (``gs_cb``), the warm
     start, this rank's block_size columns solved in S's space, harvested
-    through the pack kernel and all-gathered.  Exact single-device
-    semantics (the same screening and caps per column).
+    as the single-device driver harvests a block (one fetch, the pack
+    kernel and the maps to item ids on the device) and all-gathered, held
+    (``solvers.cd._Held``) and assembled by ``solvers.cd._assemble``.
+    Exact single-device semantics (the same screening and caps per
+    column).
 
     One-superblock lookahead: superblock k+1 is dispatched before k is
     harvested.  With ``cfg.checkpoint_dir`` each superblock is saved by
@@ -270,7 +273,9 @@ def _superblocks_solve(R: _Ranked, cfg, flags_cb, gs_cb, imodel,
     ckpt = _Checkpoint(cfg, R.train, n, Bsup, imodel if use_warm else None,
                        extra=f"dist:{Bsup}".encode()) \
         if cfg.checkpoint_dir else None
-    blocks = []
+    held = _Held(dev)
+    p32 = torch.from_numpy(np.concatenate(
+        [p, np.arange(n, npad)]).astype(np.int32)).to(dev)
     nsup = -(-R.n_eff // Bsup)
 
     def dispatch(s0, blk):
@@ -313,24 +318,19 @@ def _superblocks_solve(R: _Ranked, cfg, flags_cb, gs_cb, imodel,
             fslim_nnbrs=fslim_nnbrs, simtype=cfg.simtype)
         logger.info("superblock %d/%d: K=%d dispatched in %.2fs", blk + 1,
                     nsup, K, time.perf_counter() - t0)
-        return s0, blk, S, mine, out
+        return blk, S_dev, jl_d, mine, out
 
     def harvest(rec):
-        s0, blk, S, mine, out = rec
-        c, fv, fi = _pack_block(out[0], mine)
-        va = fv.cpu().numpy()
-        coords = S[fi.cpu().numpy().astype(np.int64)]
-        rows = np.repeat(np.arange(bs, dtype=np.int64), c)
-        keep = coords < n
-        niters, _, rnorm, obj = _col_stats(out, mine)
+        blk, S_dev, jl_d, mine, out = rec
+        _, (niters, _, rnorm, obj), fv, _, coord, target = _harvest(
+            out, mine, jl_d, p32, n, S=S_dev)
         st = comm.all_gather_host(np.asarray(
             [rnorm.sum(), obj.sum(), niters.sum(),
              niters.max() if mine else 0]), dev)
-        rec = _Block(*comm.all_gather_triplets(
-            p[coords[keep]], p[s0 + lo + rows[keep]], va[keep], dev),
-            float(st[:, 0].sum()), float(st[:, 1].sum()),
-            int(st[:, 2].sum()), int(st[:, 3].max()))
-        blocks.append(rec)
+        rec = _Block(*comm.all_gather_triplets(coord, target, fv, dev),
+                     float(st[:, 0].sum()), float(st[:, 1].sum()),
+                     int(st[:, 2].sum()), int(st[:, 3].max()))
+        held.add(rec)
         if ckpt is not None and R.rank == 0:
             ckpt.save(blk, rec)
 
@@ -348,7 +348,7 @@ def _superblocks_solve(R: _Ranked, cfg, flags_cb, gs_cb, imodel,
                 if pending is not None:
                     harvest(pending)
                     pending = None
-                blocks.append(hit)
+                held.add(hit)
                 logger.info("superblock %d: resumed from checkpoint", blk + 1)
                 continue
         rec = dispatch(s0, blk)
@@ -358,14 +358,11 @@ def _superblocks_solve(R: _Ranked, cfg, flags_cb, gs_cb, imodel,
     if pending is not None:
         harvest(pending)
 
-    model = _assemble([b.coord for b in blocks], [b.target for b in blocks],
-                      [b.vals for b in blocks], n)
-    loss = sum(b.obj for b in blocks)
-    fit = sum(b.err for b in blocks)
+    parts, (fit, loss, niters, sweeps) = held.of()
+    model = _assemble(*parts, n)
     stats = {"loss": loss, "fit": fit, "ffrac": fit / loss if loss else 0.0,
-             "nnz": model.nnz, "niters": sum(b.niters for b in blocks),
-             "sweeps": sum(b.sweeps for b in blocks), "ndevices": R.ndev,
-             "superblocks": nsup}
+             "nnz": model.nnz, "niters": niters, "sweeps": sweeps,
+             "ndevices": R.ndev, "superblocks": nsup}
     return model, stats
 
 

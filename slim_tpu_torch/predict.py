@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import logging
 import os
-import weakref
 
 import numpy as np
 import torch
@@ -54,7 +53,7 @@ from .ops.densify import densify_runs
 from .ops.gram import pin_f32
 from .solvers.cd import bucket_npad
 from .types import CSR
-from .utils import resolve_device, span, topk_lowest_id
+from .utils import kept, resolve_device, span, topk_lowest_id
 
 # above this many items a dense (npad, npad) W stops fitting next to the
 # score blocks on the JAX package's 16 GB part; kept for parity of routes
@@ -180,38 +179,32 @@ def split_bf16(W, halves: int):
     return Wk
 
 
-# the one kept split of a dense W (_halves_of): (a weak reference to W,
-# W's version counter when split, the number of halves, the halves)
+# the one kept split of a dense W (_halves_of, utils.kept): (a weak
+# reference to W, W's version counter when split, the number of halves,
+# the halves)
 _SPLIT = {}
 
 
 def _halves_of(W, halves: int):
     """:func:`split_bf16` of ``W``, made once and kept on W's device while
-    W lives unchanged: the same tensor object with the same version
-    counter (an in-place write to W or to any view of it bumps it).  Two
-    kept halves serve a one-half call too (its half is the first, byte
-    for byte :func:`split_bf16` of one half); a two-half call on one kept
-    half splits again.  One split is kept, of the latest W; dropping W
-    frees its halves.  Writes that bypass the version counter (through
-    ``.data`` or DLPack) are not seen.  A split made is a
-    ``slim.predict.split`` span, a kept one served an empty
-    ``slim.predict.split_hit``."""
-    hit = _SPLIT.get("W")
-    if hit is not None and hit[0]() is W and hit[1] == W._version \
-            and hit[2] >= halves:
-        with span("slim.predict.split_hit"):
-            pass
-        return hit[3][:halves * W.shape[0]]
+    W lives unchanged (:func:`~slim_tpu_torch.utils.kept`: the same
+    tensor object with the same version counter).  Two kept halves serve
+    a one-half call too (its half is the first, byte for byte
+    :func:`split_bf16` of one half); a two-half call on one kept half
+    splits again.  One split is kept, of the latest W; dropping W frees
+    its halves.  A split made is a ``slim.predict.split`` span, a kept
+    one served an empty ``slim.predict.split_hit``."""
 
-    def drop(ref):
-        if _SPLIT.get("W", (None,))[0] is ref:
-            del _SPLIT["W"]
+    def make():
+        with span("slim.predict.split"):
+            return split_bf16(W, halves)
 
-    _SPLIT.clear()
-    with span("slim.predict.split"):
-        Wk = split_bf16(W, halves)
-    _SPLIT["W"] = (weakref.ref(W, drop), W._version, halves, Wk)
-    return Wk
+    Wk, hit = kept(_SPLIT, "W", W, make, halves)
+    if not hit:
+        return Wk
+    with span("slim.predict.split_hit"):
+        pass
+    return Wk[:halves * W.shape[0]]
 
 
 def mm_f32(a, b):

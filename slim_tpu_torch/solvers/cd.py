@@ -8,17 +8,15 @@ active-set screen concentrates in the low ranks.  Wide catalogues solve
 each block in its union-active-set space (compact path), snapped to full
 width when the union covers more than :func:`compact_frac` of it; FSLIM
 takes the union of the columns' neighbour sets instead of the screen's.  Each
-solved block is harvested behind the next block's solve (:class:`_Harvest`,
-as the JAX package pipelines it): its counts and column stats in one
-fetch, the pack kernel and the maps to item ids on the device, a copy on a
-stream of its own into pinned memory, and the host completion on a worker
-thread, in block order.  The model is assembled by the native runtime's
-counting sort (scipy where no C++ compiler is found; estimate.c:570-593),
-keeping entries > 1e-7 (estimate.c:492-505).  On the card a learn with no
-checkpoints and no shard keeps each block's entries there instead, sorts
-them there after the last block and copies the finished CSR out once
-(:func:`assembly_route`, :func:`_assemble_on_card`): the same model, entry
-for entry.
+solved block is harvested on the main thread: its counts and column stats
+in one fetch, the pack kernel and the maps to item ids on the device
+(:func:`_harvest`), and its entries held as tensors
+(:class:`_Held`), on the device while they fit in :func:`_card_budget`,
+else in host memory; the pack keeps entries > 1e-7 (estimate.c:492-505).
+Every CD driver (this learn, the packed grid and the distributed
+superblocks) ends in :func:`_assemble` (estimate.c:570-593), which sorts
+the held entries where they are: on the card it copies the finished CSR
+out once.
 
 Warm starts (estimate.c:453-471) densify each block's x0 on the device
 from runs: the previous model's columns, or the retained pack of the
@@ -35,19 +33,19 @@ pass, each block's columns carrying their own regularisation.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import logging
+import math
 import os
 import time
 import zipfile
-from collections import Counter, deque
-from concurrent.futures import Future, ThreadPoolExecutor
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import native
 from ..config import (SlimConfig, SLIM_DBG_INFO, SLIM_DBG_PROGRESS,
                       SLIM_DBG_TIME, dbg)
 from ..ops.cd_kernel import (block_union_flags, block_union_mask,
@@ -164,10 +162,9 @@ class _PackAccum:
 
 class _Block(NamedTuple):
     """One solved block in item space: its model entries (rated item,
-    target item, value; host arrays, or tensors on the card where the
-    model is assembled there) and its column stats summed (err, obj,
-    niters), with ``sweeps`` = the sweeps its solve took (its slowest
-    column's)."""
+    target item, value; tensors, or host arrays as a checkpoint file holds
+    them) and its column stats summed (err, obj, niters), with ``sweeps``
+    = the sweeps its solve took (its slowest column's)."""
     coord: np.ndarray | torch.Tensor
     target: np.ndarray | torch.Tensor
     vals: np.ndarray | torch.Tensor
@@ -234,8 +231,10 @@ class _Checkpoint:
             return None
 
     def save(self, blk: int, rec: _Block) -> None:
+        """Write the block, its entries copied to host arrays."""
         tmp = self.path(blk) + ".tmp.npz"
-        np.savez(tmp, **rec._asdict())
+        np.savez(tmp, **{k: v.cpu().numpy() if torch.is_tensor(v) else v
+                         for k, v in rec._asdict().items()})
         os.replace(tmp, self.path(blk))
 
 
@@ -259,231 +258,125 @@ def _rank_space(train: CSR, cfg: SlimConfig, npad: int, gram, dev):
     return g, p, p_pad, posmap_pad, col_caps[p], nnz_col
 
 
-def _pack_counted(x, c):
-    """The pack of a solved (B, K) block whose per-column counts over
-    EPSILON are ``c`` (host int64, padded columns 0): offsets -> the pack
-    kernel.  Returns (values, coordinate ids) on the device, in column
-    order, ``c.sum()`` long."""
-    off = np.zeros(x.shape[0], np.int32)
-    np.cumsum(c[:-1], out=off[1:])
-    T = int(c.sum())
-    fv, fi = pack(x, torch.from_numpy(off).to(x.device), EPSILON,
-                  nnz_bucket(max(T, 1), floor=128))
-    return fv[:T], fi[:T]
-
-
-def _pack_block(x, nJ: int):
-    """Harvest of one solved (B, K) block: per-column counts of entries
-    over EPSILON (host; padded columns 0), then offsets -> the pack kernel.
-    Returns (counts, values, coordinate ids), the last two on the device
-    in column order."""
-    x = x.contiguous()
-    c = count_over(x, EPSILON).cpu().numpy().astype(np.int64)
-    c[nJ:] = 0
-    return (c, *_pack_counted(x, c))
-
-
-def _col_stats(out, nJ: int):
-    """(niters, rstatus, rnorm, obj) of a block solve's first nJ columns,
-    float64 on the host."""
-    return torch.stack([o[:nJ].to(torch.float64) for o in out[1:]]) \
-        .cpu().numpy()
-
-
-# the main thread's blocked waits in the solve + harvest loop, as the JAX
-# package logs them: on a block's count and stats fetch (the solve's end),
-# and on an in-flight block's copy or host completion
-WAITS = ("solve-sync", "pack-fetch")
+# the main thread's blocked wait in the solve + harvest loop, as the JAX
+# package logs it: on a block's count and stats fetch (the solve's end)
+WAITS = ("solve-sync",)
 
 
 def _phases(clock: PhaseTimer) -> dict:
-    """The clock's phases, the two waits always among them."""
+    """The clock's phases, the waits always among them."""
     return dict(clock.phases, **{k: clock.phases.get(k, 0.0)
                                  for k in WAITS})
 
 
-def harvest_depth() -> int:
-    """The most solved blocks whose harvest may be in flight behind the
-    next solve: SLIM_HARVEST_CHUNK, read at call time, default 8.  0 (or
-    less) completes each block's harvest before the next solve starts, the
-    JAX package's unpipelined order."""
-    return max(int(os.environ.get("SLIM_HARVEST_CHUNK", "8")), 0)
-
-
-class _Harvest:
-    """The solved blocks' harvest behind the solves.
-
-    The main thread fetches a block's counts and column stats in one copy
-    (:meth:`fetch`), packs it and maps its ids to item space on the device
-    (:func:`_item_space`), and hands the result to :meth:`submit`: on the
-    card the arrays go to pinned host memory on a copy stream of their own,
-    after an event of the compute stream, and the main thread goes on to
-    the next solve, which queues the block on the worker
-    (:meth:`hand_over`).  One worker thread completes the blocks in the
-    order they were submitted: it waits for the copy, copies the arrays
-    out of the pinned buffers into arrays of their own and runs the
-    caller's ``finish`` (logging, the checkpoint write), so block b's file
-    is written after every earlier block's.  :meth:`put` queues a block
-    that needs no harvest (restored); :meth:`drain`, called right after a
-    phase of the clock, waits until at most ``depth`` blocks are in flight
-    and returns those that left the queue, in block order.  A worker's
-    exception is raised by the :meth:`drain` that reads its block, and no
-    later block completes after it.  On the CPU there is no copy stream:
-    the worker takes the arrays as they are."""
-
-    def __init__(self, dev, clock: PhaseTimer, depth: int):
-        self.dev, self.clock, self.depth = dev, clock, depth
-        self.copy = torch.cuda.Stream(device=dev) if dev.type == "cuda" \
-            else None
-        self.pool = ThreadPoolExecutor(1, thread_name_prefix="slim-harvest")
-        self.queue = deque()
-        self.handed = deque()   # blocks not yet queued (:meth:`hand_over`)
-        self.failed = False
-        # the worker's seconds: waiting on copies, copying out of the
-        # pinned buffers, and what ``finish`` adds (the checkpoint writes)
-        self.worker = Counter()
-
-    def fetch(self, out, nJ: int):
-        """(counts (B,) int64 with the padded columns 0, stats (4, nJ)
-        float64: niters, rstatus, rnorm, obj) of a block solve, in one
-        copy to the host."""
-        with self.clock.phase("solve-sync"):
-            x = out[0]
-            B = x.shape[0]
-            h = torch.cat([count_over(x, EPSILON).to(torch.float64),
-                           torch.stack([o.to(torch.float64)
-                                        for o in out[1:]]).reshape(-1)])
-            with span("slim.wait.fetch"):
-                h = h.cpu().numpy()
-            c = h[:B].astype(np.int64)
-            c[nJ:] = 0
-        return c, h[B:].reshape(4, B)[:, :nJ]
-
-    def submit(self, arrays, finish):
-        """Copy the device tensors ``arrays`` to the host and queue
-        ``finish(*host_arrays)`` on the worker."""
-        host = arrays
-        done = None
-        if self.copy is not None:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.dev))
-            with torch.cuda.stream(self.copy):
-                self.copy.wait_event(ready)
-                host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                        for a in arrays]
-                for h, a in zip(host, arrays):
-                    h.copy_(a, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self.copy)
-        self.handed.append((arrays, host, done, finish))
-
-    def hand_over(self):
-        """Queue the blocks submitted (and put) since the last call on the
-        worker, in order.  Called inside a phase whose body goes on with
-        work (the next block's solve) or waits for the worker (a drain's
-        ``pack-fetch``): the worker then takes the interpreter lock while
-        the main thread is inside a span.  Woken just before a span ends,
-        it took the lock that the span's closing releases, and the phase's
-        clock, read after the span, counted the main thread's wait to get
-        it back, which the span does not hold."""
-        while self.handed:
-            item = self.handed.popleft()
-            self.queue.append(item if isinstance(item, Future)
-                              else self.pool.submit(self._complete, *item))
-
-    def _complete(self, arrays, host, done, finish):
-        """On the worker: one block's host completion (the arrays are kept
-        alive until their copy has ended)."""
-        if self.failed:
-            raise RuntimeError("an earlier block's harvest failed")
-        try:
-            t0 = time.perf_counter()
-            if done is not None:
-                done.synchronize()
-            t1 = time.perf_counter()
-            out = [np.array(h.numpy()) if done is not None else h.numpy()
-                   for h in host]
-            del arrays, host
-            self.worker["copy"] += t1 - t0
-            self.worker["host"] += time.perf_counter() - t1
-            return finish(*out)
-        except BaseException:
-            self.failed = True
-            raise
-
-    def put(self, rec):
-        """Queue a block's result that is ready now."""
-        fut = Future()
-        fut.set_result(rec)
-        self.handed.append(fut)
-
-    def drain(self, depth: int = 0):
-        """Wait until at most ``depth`` blocks are in flight; returns the
-        results that left the queue, in order.  The main thread's wait is
-        charged to ``pack-fetch``."""
-        done = []
-        if len(self.queue) + len(self.handed) > depth:
-            with self.clock.phase("pack-fetch"):
-                self.hand_over()
-                while len(self.queue) > depth:
-                    with span("slim.wait.drain"):
-                        done.append(self.queue.popleft().result())
-        return done
-
-    def close(self):
-        """Stop the worker: blocks still queued after a failure are
-        cancelled or fail fast."""
-        self.hand_over()
-        self.failed = self.failed or bool(self.queue)
-        self.pool.shutdown(wait=True, cancel_futures=True)
-
-
-def _solved_items(x, n: int, S=None):
-    """A solved (B, K) block ``x`` with the columns that are no model item
-    zeroed (rank padding: coordinate >= n, through S on the compact
-    path), so that its counts and pack hold only entries the model keeps
-    (the JAX package drops them from the fetched pack instead; the same
-    entries remain).  A new contiguous tensor."""
-    cols = S if S is not None else torch.arange(x.shape[1], device=x.device)
-    return x.masked_fill((cols >= n)[None, :], 0.0).contiguous()
-
-
-def _item_space(x, c, J, p32, S=None):
-    """One solved block's model entries in item space on the device: the
-    pack kernel at the counts ``c`` (host), then integer maps only -- each
+def _harvest(out, nJ: int, J, p32, n: int, hold=lambda *a: a, S=None,
+             clock=None):
+    """One solved block's harvest, the same in every CD driver.  ``out``:
+    the block solve's (solved (B, K) block, niters, rstatus, rnorm, obj);
+    its first ``nJ`` columns are real.  The coordinates that are no model
+    item are zeroed (rank padding: coordinate >= n, through S on the
+    compact path; the JAX package drops them from the fetched pack
+    instead, the same entries remain), then the counts over EPSILON and
+    the column stats are fetched in one copy (the phase ``solve-sync`` of
+    ``clock``, when given), then on the device (the phase ``harvest``) the
+    pack kernel at the counts' offsets and integer maps only: each
     entry's column by ``repeat_interleave`` of the counts, compact ids
     through S, ranks to items through ``p32`` (rank -> item over npad,
     int32) for the coordinate and for the target ``J[column]``.  Returns
-    (pack values, pack ids, coord int32, target int32), in column order,
-    ``c.sum()`` entries each."""
-    fv, fi = _pack_counted(x, c)
-    cnt = torch.from_numpy(c).to(x.device)
-    rows = torch.repeat_interleave(torch.arange(x.shape[0], device=x.device),
-                                   cnt, output_size=fv.numel())
-    cp = S.long()[fi.long()] if S is not None else fi.long()
-    return fv, fi, p32[cp], p32[J.long()[rows]]
+    ``hold(counts (B,) int64 with the padded columns 0, stats (4, nJ)
+    float64: niters, rstatus, rnorm, obj, pack values, pack ids, coord
+    int32, target int32)``, called inside the phase ``harvest`` (by
+    default those six as a tuple); the entries are in column order,
+    ``counts.sum()`` of each."""
+    phase = clock.phase if clock is not None else \
+        (lambda name: contextlib.nullcontext())
+    x, B = out[0], out[0].shape[0]
+    cols = S if S is not None else torch.arange(x.shape[1], device=x.device)
+    x = x.masked_fill((cols >= n)[None, :], 0.0).contiguous()
+    with phase("solve-sync"):
+        h = torch.cat([count_over(x, EPSILON).to(torch.float64),
+                       torch.stack([o.to(torch.float64)
+                                    for o in out[1:]]).reshape(-1)])
+        with span("slim.wait.fetch"):
+            h = h.cpu().numpy()
+        c = h[:B].astype(np.int64)
+        c[nJ:] = 0
+    with phase("harvest"):
+        off = np.zeros(B, np.int32)
+        np.cumsum(c[:-1], out=off[1:])
+        T = int(c.sum())
+        fv, fi = pack(x, torch.from_numpy(off).to(x.device), EPSILON,
+                      nnz_bucket(max(T, 1), floor=128))
+        fv, fi = fv[:T], fi[:T]
+        rows = torch.repeat_interleave(
+            torch.arange(B, device=x.device),
+            torch.from_numpy(c).to(x.device), output_size=T)
+        cp = S.long()[fi.long()] if S is not None else fi.long()
+        return hold(c, h[B:].reshape(4, B)[:, :nJ], fv, fi, p32[cp],
+                    p32[J.long()[rows]])
 
 
-def assembly_route(dev, cfg: SlimConfig, shard) -> str:
-    """Where a CD learn assembles its model: "card" on a CUDA device with
-    no ``cfg.checkpoint_dir`` and no ``shard`` (the blocks' entries stay
-    on the card and are sorted there, :func:`_assemble_on_card`), else
-    "host" (:func:`_assemble`: the native counting sort is the faster on
-    the CPU, a checkpoint's ``finish`` writes host blocks, a shard gathers
-    host triplets).  A card learn falls back to "host" while it runs
-    when its entries outgrow the card (:func:`_card_budget`)."""
-    if dev.type == "cuda" and not cfg.checkpoint_dir and shard is None:
-        return "card"
-    return "host"
-
-
-def _card_budget(dev) -> int:
+def _card_budget(dev) -> float:
     """The bytes of entries a learn may hold on the card to sort them
     there: a quarter of the free memory ``torch.cuda.mem_get_info``
     reports (the joined copies, the sort's keys, permutation and scratch
-    take up to four times the entries' bytes).  Read once a learn, at its
-    first held block: the query took 0.1-90 ms a call on an H100 machine."""
+    take up to four times the entries' bytes); no bound off the card,
+    where the entries are in host memory already.  Read once a learn, at
+    its first held block: the query took 0.1-90 ms a call on an H100
+    machine."""
+    if dev.type != "cuda":
+        return math.inf
     return torch.cuda.mem_get_info(dev)[0] // 4
+
+
+class _Held:
+    """The solved blocks (:class:`_Block`) of a learn until its assembly,
+    in the order they were added, each under a key (the grid's point; 0
+    elsewhere), their entries as tensors on the learn's device (restored
+    blocks' arrays uploaded).  Once the entries held pass
+    :func:`_card_budget`, every held block moves to host memory as CPU
+    tensors, and so does every later one."""
+
+    def __init__(self, dev):
+        self.dev, self.blocks, self.keys = dev, [], []
+        self.nbytes, self.budget = 0, None
+
+    @property
+    def where(self) -> str:
+        """Where the held entries are: "card" on a CUDA device, else
+        "host"."""
+        return "card" if self.dev.type == "cuda" else "host"
+
+    def _on_dev(self, rec: _Block) -> _Block:
+        return rec._replace(**{k: torch.as_tensor(getattr(rec, k)).to(
+            self.dev) for k in ("coord", "target", "vals")})
+
+    def _move(self):
+        """Every held block, and every later one, to host memory."""
+        self.dev, self.budget = torch.device("cpu"), math.inf
+        self.blocks = [self._on_dev(b) for b in self.blocks]
+
+    def add(self, rec: _Block, key: int = 0):
+        if self.budget is None:
+            self.budget = _card_budget(self.dev)
+        self.nbytes += 12 * len(rec.vals)
+        if self.nbytes > self.budget:
+            logger.info("model entries past the card's budget (%d of %d "
+                        "bytes) after %d held blocks: held in host memory",
+                        self.nbytes, self.budget, len(self.blocks))
+            self._move()
+        self.blocks.append(self._on_dev(rec))
+        self.keys.append(key)
+
+    def of(self, key: int = 0):
+        """The (coord, target, vals) lists of ``key``'s blocks, as
+        :func:`_assemble` takes them, and their column stats summed (err,
+        obj, niters, sweeps)."""
+        got = [b for b, k in zip(self.blocks, self.keys) if k == key]
+        return (([b.coord for b in got], [b.target for b in got],
+                 [b.vals for b in got]),
+                tuple(sum(getattr(b, f) for b in got)
+                      for f in ("err", "obj", "niters", "sweeps")))
 
 
 def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
@@ -522,16 +415,13 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     the process group returns the whole model and its stats
     (``parallel.dist.distributed_learn``).
 
-    Up to :func:`harvest_depth` solved blocks (SLIM_HARVEST_CHUNK) are
-    harvested behind the solves (:class:`_Harvest`); 0 harvests each
-    block before the next solve, and gives the same model entry for
-    entry.  ``phases`` are the main thread's seconds, the waits
-    ``solve-sync`` and ``pack-fetch`` among them; ``harvest_worker`` the
-    worker thread's (``copy``, ``host``, ``checkpoint``).  On the route
-    :func:`assembly_route` gives "card" the blocks' entries stay on the
-    card, copied nowhere, until the assembly sorts them there and copies
-    the CSR out once (:func:`_assemble_on_card`); ``stats["assembly"]``
-    says where the model was assembled, "card" or "host"."""
+    Each solved block's entries stay on the device, copied nowhere, until
+    the assembly sorts them there (:func:`_assemble`); past
+    :func:`_card_budget` they move to host memory (:class:`_Held`).
+    ``phases`` are the seconds of each phase, the wait ``solve-sync``
+    among them, and ``checkpoint`` the checkpoint writes';
+    ``stats["assembly"]`` says where the model was assembled, "card" or
+    "host"."""
     if shard is not None and keep_device_model:
         raise ValueError("keep_device_model needs every block on one "
                          "device, not a shard")
@@ -623,7 +513,6 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                 if S is not None:
                     x0 = x0.index_select(1, S.long())
         with clock.phase("solve"):
-            harv.hand_over()
             caps = np.zeros(B, dtype=np.int32)
             caps[:nJ] = caps_p[r0:r0 + nJ]
             caps_d = torch.from_numpy(caps).to(dev)
@@ -643,15 +532,9 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         return r0, nJ, J, S, out
 
     def harvest(blk, r0, nJ, J, S, out):
-        """The block's counts and stats (one fetch), its pack and item ids
-        on the device, its completion queued on the worker (or, on the
-        card route, its entries held there)."""
-        nonlocal route, held, budget
-        x = _solved_items(out[0], n, S)
-        c, (niters_h, rstatus_h, rnorm_h, obj_h) = harv.fetch((x, *out[1:]),
-                                                              nJ)
-
-        def finish(coord, target, vals):
+        """The block's harvest (:func:`_harvest`), its entries held."""
+        def hold(c, st, fv, fi, coord, target):
+            niters_h, rstatus_h, rnorm_h, obj_h = st
             if dbg(cfg, SLIM_DBG_PROGRESS):
                 for b in range(nJ):
                     j = p[r0 + b]
@@ -659,64 +542,37 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                                 "rsd: %.2e obj: %.2e", j, int(nnz_col[j]),
                                 int(rstatus_h[b]), int(niters_h[b]),
                                 int(c[b]), rnorm_h[b], obj_h[b])
-            rec = _Block(coord, target, vals, float(rnorm_h.sum()),
-                         float(obj_h.sum()), int(niters_h.sum()),
-                         int(niters_h.max()) if nJ else 0)
-            if ckpt is not None:
-                t0 = time.perf_counter()
-                ckpt.save(blk, rec)
-                harv.worker["checkpoint"] += time.perf_counter() - t0
-            return rec
-
-        with clock.phase("harvest"):
-            fv, fi, coord, target = _item_space(x, c, J, p32, S)
             if acc is not None:
                 acc.add(c, fv, fi, S)
-            if route == "card":
-                held += 12 * fv.numel()
-                budget = _card_budget(dev) if budget is None else budget
-                if held > budget:
-                    # too many entries to sort on the card: the blocks
-                    # held so far go to the host, the rest the host's way
-                    route = "host"
-                    blocks[:] = [_Block(*(a.cpu().numpy() for a in b[:3]),
-                                        *b[3:]) for b in blocks]
-            if route == "card":
-                blocks.append(finish(coord, target, fv))
-            else:
-                harv.submit((coord, target, fv), finish)
+            rec = _Block(coord, target, fv, float(rnorm_h.sum()),
+                         float(obj_h.sum()), int(niters_h.sum()),
+                         int(niters_h.max()) if nJ else 0)
+            held.add(rec)
+            return rec
 
-    # solve block b+1 while the worker completes block b's harvest (or,
-    # on the card route, while its entries wait on the card)
+        return _harvest(out, nJ, J, p32, n, hold, S, clock)
+
     p32 = torch.from_numpy(p_pad.astype(np.int32)).to(dev)
-    harv = _Harvest(dev, clock, harvest_depth())
-    route, held, budget = assembly_route(dev, cfg, shard), 0, None
-    blocks = []
-    try:
-        for blk in mine:
-            rec = None
-            if ckpt is not None and os.path.exists(ckpt.path(blk)):
-                with clock.phase("restore"):
-                    rec = ckpt.load(blk)
-                    if rec is not None:
-                        harv.put(rec)
-            if rec is None:
-                harvest(blk, *solve_block(blk))
-            blocks += harv.drain(harv.depth)
-        blocks += harv.drain()
-    finally:
-        harv.close()
+    held = _Held(dev)
+    for blk in mine:
+        rec = None
+        if ckpt is not None and os.path.exists(ckpt.path(blk)):
+            with clock.phase("restore"):
+                rec = ckpt.load(blk)
+                if rec is not None:
+                    held.add(rec)
+        if rec is None:
+            rec = harvest(blk, *solve_block(blk))
+            if ckpt is not None:
+                with clock.phase("checkpoint"):
+                    ckpt.save(blk, rec)
 
-    parts = ([b.coord for b in blocks], [b.target for b in blocks],
-             [b.vals for b in blocks])
-    sums = (sum(b.err for b in blocks), sum(b.obj for b in blocks),
-            sum(b.niters for b in blocks), sum(b.sweeps for b in blocks))
     if shard is not None:
         with clock.phase("gather"):
-            parts, sums = _gathered(*parts, sums, dev)
+            held = _gathered(*held.of(), dev)
+    parts, sums = held.of()
     with clock.phase("assembly"):
-        model = _assemble_on_card(*parts, n) if route == "card" \
-            else _assemble(*parts, n)
+        model = _assemble(*parts, n)
     total_err, total_obj, niters, sweeps = sums
     stats = {
         "loss": total_obj,
@@ -726,8 +582,7 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         "niters": niters,
         "sweeps": sweeps,
         "phases": _phases(clock),
-        "harvest_worker": dict(harv.worker),
-        "assembly": route,
+        "assembly": held.where,
     }
     if use_compact:
         # coordinate width -> blocks, and each compact block's union (rank
@@ -753,33 +608,15 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
     return model, stats
 
 
-def _cat(parts, dt) -> np.ndarray:
-    return np.concatenate(parts) if parts else np.zeros(0, dt)
-
-
 def _assemble(coord, target, vals, n: int) -> CSR:
-    """The (n, n) model from lists of (rated item, target item, value)
-    arrays, each pair once: the native threaded counting sort straight
-    from the fragments when a C++ compiler is found (as in the JAX
-    package's CD learn), else scipy over their concatenation.  Both give
-    the same CSR entry for entry."""
-    if native.available():
-        return CSR.from_arrays(n, n, *native.csr_from_blocks(coord, target,
-                                                              vals, n))
-    return CSR.from_ijv(_cat(coord, np.int32), _cat(target, np.int32),
-                        _cat(vals, np.float32), nrows=n, ncols=n,
-                        no_duplicates=True)
-
-
-def _assemble_on_card(coord, target, vals, n: int) -> CSR:
-    """:func:`_assemble` of lists of (rated item int32, target item int32,
-    value float32) tensors on one device: the entries sorted there by the
-    key coord x n + target (int32 while n^2 < 2^31, else int64), the
-    values gathered by the sort's permutation, the row counts' cumulative
-    sum as indptr, then indptr, indices and data copied to the host once,
-    into pageable memory.  Each (row, column) pair appears once, so the
-    keys are unique and any sort gives the one order: the CSR equals
-    ``native.csr_from_blocks``' entry for entry."""
+    """The (n, n) model from lists of (rated item int32, target item int32,
+    value float32) tensors on one device, each pair once: the entries
+    sorted there by the key coord x n + target (int32 while n^2 < 2^31,
+    else int64), the values gathered by the sort's permutation, the row
+    counts' cumulative sum as indptr, then indptr, indices and data copied
+    to the host once, into pageable memory.  Each (row, column) pair
+    appears once, so the keys are unique and any sort gives the one
+    order: the CSR equals ``native.csr_from_blocks``' entry for entry."""
     if not coord:
         return CSR.from_arrays(n, n, np.zeros(n + 1, np.int64),
                                np.zeros(0, np.int32), np.zeros(0, np.float32))
@@ -798,18 +635,22 @@ def _assemble_on_card(coord, target, vals, n: int) -> CSR:
                            indices.cpu().numpy(), data.cpu().numpy())
 
 
-def _gathered(coord, target, vals, sums, dev):
-    """A ``shard`` solve's entries (lists of arrays, as :func:`_assemble`
+def _gathered(parts, sums, dev) -> _Held:
+    """A ``shard`` solve's entries (lists of tensors, as :func:`_assemble`
     takes them) and summed column stats (err, obj, niters, sweeps) from
     every rank of the process group, the same on each: the entries
-    all-gathered in rank order, the sums summed."""
+    all-gathered in rank order, held as one block (:class:`_Held`: on
+    ``dev`` while they fit), the sums summed."""
     from ..parallel.comm import all_gather_host, all_gather_triplets
 
-    tri = all_gather_triplets(_cat(coord, np.int32), _cat(target, np.int32),
-                              _cat(vals, np.float32), dev)
+    cat = [torch.cat(a) if a else torch.zeros(0, dtype=dt, device=dev)
+           for a, dt in zip(parts, (torch.int32, torch.int32, torch.float32))]
+    tri = all_gather_triplets(*cat, dev)
     err, obj, niters, sweeps = all_gather_host(
         np.asarray(sums, np.float64), dev).sum(axis=0).tolist()
-    return [[a] for a in tri], (err, obj, int(niters), int(sweeps))
+    held = _Held(dev)
+    held.add(_Block(*tri, err, obj, int(niters), int(sweeps)))
+    return held
 
 
 def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
@@ -823,11 +664,11 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
     point's (l1r, l2r), cold (no warm start), block v0's visit order seeded
     with seed + v0 as in the JAX package; FSLIM restricts each column to
     its neighbours.  Each block is harvested through the pack kernel and
-    its entries split by point, behind the next block's solve as in
-    :func:`estimate_model_cd`.  Returns a list of (model, stats) aligned
-    with ``points``; a point's loss, fit, nnz and niters are its columns'
-    sums, its ``sweeps`` the sweeps of the blocks that hold its columns,
-    its ``phases`` those of the whole pass.
+    its entries held split by point, as in :func:`estimate_model_cd`.
+    Returns a list of (model, stats) aligned with ``points``; a point's
+    loss, fit, nnz and niters are its columns' sums, its ``sweeps`` the
+    sweeps of the blocks that hold its columns, its ``phases`` those of the
+    whole pass.
     ``gram``: the item-space Gram on ``device`` (a shared or all-reduced
     one); ``shard`` = (rank, size): only the blocks b with b % size ==
     rank, each point gathered from every rank, as in
@@ -841,9 +682,8 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
     P = len(points)
     l1s = np.asarray([pt[0] for pt in points], dtype=np.float32)
     l2s = np.asarray([pt[1] for pt in points], dtype=np.float32)
-    tri = [([], [], []) for _ in range(P)]   # (coord, target, val) lists
-    st = np.zeros((P, 4), np.float64)        # (err, obj, niters, sweeps)
     clock = PhaseTimer(dev, "slim.cd")
+    held = _Held(dev)   # each block's entries split by point, the key
     if train.nnz:
         # the grid's phases have no "gram": its Gram goes to "solve"
         with clock.phase("solve"):
@@ -860,74 +700,48 @@ def estimate_grid_cd(train: CSR, cfg: SlimConfig, points, device=None,
         first, step = (0, B) if shard is None else \
             (B * shard[0], B * shard[1])
 
-        def harvest(v0, nv, J, out):
-            """Block v0's counts and stats (one fetch), its pack and item
-            ids on the device; the worker splits them by grid point (each
-            point's columns are a run of the block's, so its entries are a
-            run of the pack)."""
-            x = _solved_items(out[0], n)
-            c, (niters_h, _, rnorm_h, obj_h) = harv.fetch((x, *out[1:]), nv)
+        def hold(c, st, fv, fi, coord, target):
+            """Block v0's entries held split by grid point (each point's
+            columns are a run of the block's, so its entries are a run of
+            the pack)."""
+            niters_h, _, rnorm_h, obj_h = st
             pts = np.arange(v0, v0 + nv) // n
             ends = np.cumsum(c)
-            sweeps = int(niters_h.max())
+            for pt in np.unique(pts):
+                cols = np.flatnonzero(pts == pt)
+                lo = int(ends[cols[0] - 1]) if cols[0] else 0
+                hi = int(ends[cols[-1]])
+                held.add(_Block(coord[lo:hi], target[lo:hi], fv[lo:hi],
+                                rnorm_h[cols].sum(), obj_h[cols].sum(),
+                                niters_h[cols].sum(), int(niters_h.max())),
+                         int(pt))
 
-            def finish(coord, target, vals):
-                parts = []
-                for pt in np.unique(pts):
-                    cols = np.flatnonzero(pts == pt)
-                    lo = int(ends[cols[0] - 1]) if cols[0] else 0
-                    hi = int(ends[cols[-1]])
-                    parts.append((pt, coord[lo:hi], target[lo:hi],
-                                  vals[lo:hi], (rnorm_h[cols].sum(),
-                                                obj_h[cols].sum(),
-                                                niters_h[cols].sum(),
-                                                sweeps)))
-                return parts
-
-            with clock.phase("harvest"):
-                fv, _, coord, target = _item_space(x, c, J, p32)
-                harv.submit((coord, target, fv), finish)
-
-        def add(done):
-            for parts in done:
-                for pt, *arrays, sums in parts:
-                    for lst, a in zip(tri[pt], arrays):
-                        lst.append(a)
-                    st[pt] += sums
-
-        harv = _Harvest(dev, clock, harvest_depth())
-        try:
-            for v0 in range(first, P * n, step):
-                nv = min(B, P * n - v0)
-                with clock.phase("solve"):
-                    harv.hand_over()
-                    vids = np.arange(v0, v0 + nv)
-                    ranks, pts = vids % n, vids // n
-                    Jpad = np.full(B, npad - 1, dtype=np.int32)
-                    Jpad[:nv] = ranks
-                    caps = np.zeros(B, dtype=np.int32)
-                    caps[:nv] = caps_p[ranks]
-                    l1b = np.zeros(B, dtype=np.float32)
-                    l2b = np.ones(B, dtype=np.float32)
-                    l1b[:nv], l2b[:nv] = l1s[pts], l2s[pts]
-                    J = torch.from_numpy(Jpad).to(dev)
-                    out = cd_solve_block_ids(
-                        g, J, torch.from_numpy(caps).to(dev), x0,
-                        *(torch.from_numpy(a).to(dev) for a in (l1b, l2b)),
-                        float(cfg.optTol), torch.Generator().manual_seed(
-                            int(cfg.seed) + v0), **kw)
-                harvest(v0, nv, J, out)
-                add(harv.drain(harv.depth))
-            add(harv.drain())
-        finally:
-            harv.close()
+        for v0 in range(first, P * n, step):
+            nv = min(B, P * n - v0)
+            with clock.phase("solve"):
+                vids = np.arange(v0, v0 + nv)
+                ranks, pts = vids % n, vids // n
+                Jpad = np.full(B, npad - 1, dtype=np.int32)
+                Jpad[:nv] = ranks
+                caps = np.zeros(B, dtype=np.int32)
+                caps[:nv] = caps_p[ranks]
+                l1b = np.zeros(B, dtype=np.float32)
+                l2b = np.ones(B, dtype=np.float32)
+                l1b[:nv], l2b[:nv] = l1s[pts], l2s[pts]
+                J = torch.from_numpy(Jpad).to(dev)
+                out = cd_solve_block_ids(
+                    g, J, torch.from_numpy(caps).to(dev), x0,
+                    *(torch.from_numpy(a).to(dev) for a in (l1b, l2b)),
+                    float(cfg.optTol), torch.Generator().manual_seed(
+                        int(cfg.seed) + v0), **kw)
+            _harvest(out, nv, J, p32, n, hold, clock=clock)
 
     results = []
     with clock.phase("assembly"):
         for pt in range(P):
-            parts, sums = tri[pt], st[pt]
+            parts, sums = held.of(pt)
             if shard is not None:
-                parts, sums = _gathered(*parts, sums, dev)
+                parts, sums = _gathered(parts, sums, dev).of()
             model = _assemble(*parts, n)
             err, obj, niters, sweeps = sums
             results.append((model, {

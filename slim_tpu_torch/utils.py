@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 from collections import Counter
 
 import torch
@@ -42,6 +43,31 @@ def topk_lowest_id(sc, k: int):
     slot = torch.arange(k, device=sc.device)[None, :]
     tie = low.gather(1, (slot - n_gt).clamp(min=0)).to(top_id.dtype)
     return top_sc, torch.where(slot < n_gt, top_id, tie)
+
+
+def kept(cache: dict, key: str, t, make, size: int = 0):
+    """``make()``, a value made from the tensor ``t``, kept in
+    ``cache[key]`` while t lives unchanged: the same tensor object with
+    the same version counter (an in-place write to t or to any view of it
+    bumps it; writes that bypass the counter, through ``.data`` or DLPack,
+    are not seen).  A kept value of at least ``size`` serves the call.
+    The slot holds (a weak reference to t, t's version, ``size``, the
+    value): one value, of the latest t, made after every other in
+    ``cache`` is dropped, and dropping t frees it.  Returns (value, whether
+    it was kept)."""
+    hit = cache.get(key)
+    if hit is not None and hit[0]() is t and hit[1] == t._version \
+            and hit[2] >= size:
+        return hit[3], True
+
+    def drop(ref):
+        if cache.get(key, (None,))[0] is ref:
+            del cache[key]
+
+    cache.clear()
+    value = make()
+    cache[key] = (weakref.ref(t, drop), t._version, size, value)
+    return value, False
 
 
 def resolve_device(device=None) -> torch.device:

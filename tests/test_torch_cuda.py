@@ -522,6 +522,7 @@ def test_distributed_learns_on_card_match_one_device(dev, ranks, backend):
                                                             ref_model),
                                                 "cuda"),
                       device="cuda", backend=backend, timeout_s=600)
+    assert out[0]["replicated"]["result"][1]["assembly"] == "card"
     for mode in ("replicated", "blockwise", "sharded_g"):
         (model, st) = out[0][mode]["result"]
         assert abs(st["loss"] - ref["loss"]) <= 1e-5 * ref["loss"], mode
@@ -580,62 +581,92 @@ def test_native_route_matches_card_dense(dev, rng, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-def test_ml20m_shaped_assembly_native_equals_scipy(dev, monkeypatch):
-    """A quarter-scale ML-20M-shaped learn on the card (wide blocks): the
-    card route's assembly (the entries sorted on the card), the native
-    assembly (the host route, forced through the route predicate) and
-    scipy's give the same model entry for entry."""
-    from slim_tpu_torch import SlimConfig, learn, native
-    from slim_tpu_torch.datagen import synth_ml20m
+def _reference_assembly(monkeypatch, sizes):
+    """CD learns assemble through ``native.csr_from_blocks`` over the same
+    blocks (as host arrays); each held block's entry count is appended to
+    ``sizes``."""
+    from slim_tpu_torch import native
     from slim_tpu_torch.solvers import cd as C
+
+    def assemble(coord, target, vals, n):
+        host = [[a.cpu().numpy() for a in lst]
+                for lst in (coord, target, vals)]
+        return CSR.from_arrays(n, n, *native.csr_from_blocks(*host, n))
+
+    real = C._Held.add
+    monkeypatch.setattr(C._Held, "add", lambda self, rec, key=0: (
+        sizes.append(len(rec.vals)), real(self, rec, key))[1])
+    monkeypatch.setattr(C, "_assemble", assemble)
+
+
+def _move_at(monkeypatch, at, sizes):
+    """Held entries moved to host memory at block ``at``: the card's
+    budget patched to the bytes of the blocks before it."""
+    from slim_tpu_torch.solvers import cd as C
+
+    assert sizes[at] > 0
+    budget = 12 * sum(sizes[:at])
+    monkeypatch.setattr(C, "_card_budget", lambda dev: budget)
+
+
+def _same_model(got, ref):
+    (m, s), (r, t) = got, ref
+    assert m.nnz == r.nnz > 0
+    np.testing.assert_array_equal(m.indptr, r.indptr)
+    np.testing.assert_array_equal(m.indices, r.indices)
+    np.testing.assert_array_equal(m.data, r.data)
+    assert m.indices.dtype == r.indices.dtype and m.data.dtype == r.data.dtype
+    for key in ("loss", "fit", "niters", "sweeps"):
+        assert s[key] == t[key], key
+
+
+def test_ml20m_shaped_assembly_equals_native(dev, monkeypatch):
+    """A quarter-scale ML-20M-shaped learn on the card (wide blocks): its
+    entries held on the card and sorted there (``assembly`` "card"),
+    moved to host memory at block 1 and sorted there ("host"), and the
+    reference (``native.csr_from_blocks`` over the same blocks) give the
+    same model entry for entry."""
+    from slim_tpu_torch import SlimConfig, learn
+    from slim_tpu_torch.datagen import synth_ml20m
 
     trn = synth_ml20m(seed=0, scale=0.25)
     cfg = SlimConfig(l1r=1.0, l2r=1.0, block_size=1024)
-    calls = []
-    orig = native.csr_from_blocks
-    monkeypatch.setattr(native, "csr_from_blocks",
-                        lambda *a: calls.append(1) or orig(*a))
-    m2, s2 = learn(trn, cfg, device=dev)
-    assert s2["assembly"] == "card" and not calls
-    monkeypatch.setattr(C, "assembly_route", lambda *a: "host")
-    m1, s1 = learn(trn, cfg, device=dev)
-    assert s1["assembly"] == "host" and calls
-    monkeypatch.setattr(native, "available", lambda: False)   # scipy's
-    m0, s0 = learn(trn, cfg, device=dev)
-    assert s0["assembly"] == "host" and len(calls) == 1
-    assert m2.nnz == m1.nnz == m0.nnz > 0
-    for m in (m2, m1):
-        np.testing.assert_array_equal(m.indptr, m0.indptr)
-        np.testing.assert_array_equal(m.indices, m0.indices)
-        np.testing.assert_array_equal(m.data, m0.data)
-        assert m.indices.dtype == m0.indices.dtype
-        assert m.data.dtype == m0.data.dtype
+    held = learn(trn, cfg, device=dev)
+    assert held[1]["assembly"] == "card"
+    sizes = []
+    with pytest.MonkeyPatch.context() as mp:
+        _reference_assembly(mp, sizes)
+        ref = learn(trn, cfg, device=dev)
+    _move_at(monkeypatch, 1, sizes)
+    moved = learn(trn, cfg, device=dev)
+    assert moved[1]["assembly"] == "host"
+    _same_model(held, ref)
+    _same_model(moved, ref)
 
 
-def test_checkpointed_card_learn_takes_host_route(dev, tmp_path):
-    """A checkpointed learn on the card assembles on the host and gives
-    the model of the same learn without checkpoints, which assembles on
-    the card, entry for entry."""
+def test_checkpointed_card_learn_assembly(dev, tmp_path):
+    """A checkpointed learn on the card (each block's arrays copied out
+    and written in the phase ``checkpoint``) assembles on the card too
+    and gives the model of the same learn without checkpoints, entry for
+    entry."""
     from slim_tpu_torch import SlimConfig, learn
 
     mat = random_csr(np.random.default_rng(12), 600, 500, density=0.05,
                      implicit=True)
     m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices, None)
     cfg = SlimConfig(l1r=0.5, l2r=0.5, block_size=128)
-    m1, s1 = learn(m, cfg, device=dev)
-    m2, s2 = learn(m, cfg.replace(checkpoint_dir=str(tmp_path)), device=dev)
-    assert s1["assembly"] == "card" and s2["assembly"] == "host"
-    assert m1.nnz == m2.nnz > 0
-    np.testing.assert_array_equal(m1.indptr, m2.indptr)
-    np.testing.assert_array_equal(m1.indices, m2.indices)
-    np.testing.assert_array_equal(m1.data, m2.data)
-    assert s1["loss"] == s2["loss"]
+    first = learn(m, cfg, device=dev)
+    ckpt = learn(m, cfg.replace(checkpoint_dir=str(tmp_path)), device=dev)
+    assert first[1]["assembly"] == ckpt[1]["assembly"] == "card"
+    assert ckpt[1]["phases"]["checkpoint"] > 0
+    _same_model(ckpt, first)
 
 
 def test_card_assembly_peak_memory(dev, monkeypatch):
-    """The card route's learn (entries held on the card, sorted there)
-    reaches no higher ``max_memory_allocated`` than the host route's at
-    a quarter-scale ML-20M shape."""
+    """A learn whose entries stay on the card to be sorted there reaches
+    no higher ``max_memory_allocated`` than the same learn with its
+    entries moved to host memory at the first block, at a quarter-scale
+    ML-20M shape."""
     from slim_tpu_torch import SlimConfig, learn
     from slim_tpu_torch.datagen import synth_ml20m
     from slim_tpu_torch.solvers import cd as C
@@ -643,14 +674,15 @@ def test_card_assembly_peak_memory(dev, monkeypatch):
     trn = synth_ml20m(seed=0, scale=0.25)
     cfg = SlimConfig(l1r=1.0, l2r=1.0, block_size=1024)
     peaks = {}
-    for route in ("card", "host"):
-        monkeypatch.setattr(C, "assembly_route", lambda *a, r=route: r)
+    for where in ("card", "host"):
+        if where == "host":
+            monkeypatch.setattr(C, "_card_budget", lambda dev: 0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         _, st = learn(trn, cfg, device=dev)
         torch.cuda.synchronize()
-        assert st["assembly"] == route
-        peaks[route] = torch.cuda.max_memory_allocated(dev)
+        assert st["assembly"] == where
+        peaks[where] = torch.cuda.max_memory_allocated(dev)
     assert peaks["card"] <= peaks["host"], peaks
 
 
@@ -848,14 +880,13 @@ def test_kept_split_on_card_equals_a_fresh_one(dev, rng, monkeypatch):
 
 
 @pytest.mark.parametrize("shape", ["npad384", "compact"])
-def test_pipelined_harvest_on_card_equals_serial(dev, monkeypatch, shape):
-    """The learn on the card with the harvest behind the solves (copies on
-    the copy stream into pinned memory, the worker's completion: the host
-    route, forced through the route predicate) equals the
-    SLIM_HARVEST_CHUNK=0 learn entry for entry, with equal stats and one
-    pack launch a block in both: at npad 384 (the vendored synth set's
-    300 items) and on compact blocks (ids through S).  So does the card
-    route's learn, which copies no block out."""
+def test_harvest_on_card_equals_reference_assembly(dev, monkeypatch, shape):
+    """The learn on the card with its entries held there, and moved to
+    host memory at block 1 and at block 3, equals the learn assembled by
+    ``native.csr_from_blocks`` over the same blocks entry for entry, with
+    equal stats and one pack launch a block in each: at npad 384 (the
+    vendored synth set's 300 items) and on compact blocks (ids through
+    S)."""
     import os
 
     from slim_tpu_torch import SlimConfig
@@ -873,36 +904,26 @@ def test_pipelined_harvest_on_card_equals_serial(dev, monkeypatch, shape):
                             mat.data)
         cfg = SlimConfig(l1r=3.0, l2r=1.0, block_size=64,
                          compact_threshold=64)
-    streams = []
-    real = C._Harvest.submit
-
-    def submit(self, arrays, finish):
-        streams.append(self.copy)
-        return real(self, arrays, finish)
-
-    monkeypatch.setattr(C._Harvest, "submit", submit)
-    runs = []
-    for depth in ("0", "3", None, "card"):
-        if depth is None or depth == "card":
-            monkeypatch.delenv("SLIM_HARVEST_CHUNK", raising=False)
-        else:
-            monkeypatch.setenv("SLIM_HARVEST_CHUNK", depth)
-        route = "card" if depth == "card" else "host"
-        monkeypatch.setattr(C, "assembly_route", lambda *a, r=route: r)
-        packs, copies = P.pack.launches, len(streams)
-        model, stats = C.estimate_model_cd(m, cfg, device=dev)
-        assert stats["assembly"] == route
-        assert (len(streams) == copies) == (route == "card")
-        runs.append((model, stats, P.pack.launches - packs))
     nblocks = -(-m.ncols // cfg.block_size)
-    assert streams and all(s is not None for s in streams)
-    (m0, s0, k0) = runs[0]
+
+    def run():
+        packs = P.pack.launches
+        model, stats = C.estimate_model_cd(m, cfg, device=dev)
+        assert P.pack.launches - packs == nblocks
+        return model, stats
+
+    sizes = []
+    with pytest.MonkeyPatch.context() as mp:
+        _reference_assembly(mp, sizes)
+        ref = run()
     if shape == "compact":
-        assert any(k < 512 for k in s0["union_widths"])
-    for model, stats, k in runs[1:]:
-        np.testing.assert_array_equal(model.indptr, m0.indptr)
-        np.testing.assert_array_equal(model.indices, m0.indices)
-        np.testing.assert_array_equal(model.data, m0.data)
-        for key in ("loss", "fit", "niters", "sweeps"):
-            assert stats[key] == s0[key], key
-        assert k == k0 == nblocks
+        assert any(k < 512 for k in ref[1]["union_widths"])
+    held = run()
+    assert held[1]["assembly"] == "card"
+    _same_model(held, ref)
+    for at in (1, 3):
+        with pytest.MonkeyPatch.context() as mp:
+            _move_at(mp, at, sizes)
+            moved = run()
+        assert moved[1]["assembly"] == "host"
+        _same_model(moved, ref)

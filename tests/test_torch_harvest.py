@@ -1,18 +1,21 @@
-"""The CD learn's and the packed grid's pipelined harvest
-(``solvers/cd._Harvest``): with SLIM_HARVEST_CHUNK unset (8 blocks in
-flight), 1 and 3, each learn must equal the one with SLIM_HARVEST_CHUNK=0
-(every block's harvest complete before the next solve, the JAX package's
-unpipelined order) entry for entry, with equal loss, fit, niters and
-sweeps; checkpoint files are written in block order by the worker thread;
-a failing block fails the learn; and each result stays within the goldens'
-tolerances (objective rtol 1e-4, nnz within 1%) of ``slim_tpu``'s
-``estimate_model_cd`` on JAX-CPU on the same numpy-made matrix.  All on the
-CPU (``device="cpu"``), where the same queue and worker run without a copy
-stream; tests/test_torch_cuda.py repeats the equality on the card."""
+"""The CD learn's and the packed grid's one harvest and assembly: each
+solved block's entries held as tensors (``solvers/cd._Held``) until
+``_assemble`` sorts them.  Each learn is run with its entries held to the
+end, and moved to host memory at block 1 and at block 3 (a patched
+``_card_budget``: room for the entries of the blocks before it), and
+must equal, entry for entry and with equal loss, fit, niters and sweeps,
+the same learn with ``_assemble`` replaced by ``native.csr_from_blocks``
+over the same blocks; checkpoint files are written in block order on the
+main thread; a failing block fails the learn; and each result stays
+within the goldens' tolerances (objective rtol 1e-4, nnz within 1%) of
+``slim_tpu``'s ``estimate_model_cd`` on JAX-CPU on the same numpy-made
+matrix.  All on the CPU (``device="cpu"``), where the move to host memory
+takes the same steps and copies nothing; tests/test_torch_cuda.py repeats
+the equality on the card."""
 
 import glob
+import logging
 import os
-import sys
 import threading
 
 import numpy as np
@@ -24,7 +27,7 @@ from slim_tpu.config import SlimConfig as JaxConfig
 from slim_tpu.solvers.cd import estimate_grid_cd as jax_grid
 from slim_tpu.solvers.cd import estimate_model_cd as jax_cd
 from slim_tpu.types import CSR as JCSR
-from slim_tpu_torch import SlimConfig
+from slim_tpu_torch import SlimConfig, native
 from slim_tpu_torch.io.readers import read_matrix
 from slim_tpu_torch.parallel import dist as D
 from slim_tpu_torch.parallel import launch as L
@@ -32,7 +35,9 @@ from slim_tpu_torch.solvers import cd as C
 from slim_tpu_torch.types import CSR
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
-DEPTHS = [None, "1", "3"]   # SLIM_HARVEST_CHUNK: unset (8), 1, 3
+# where the entries are when the learn ends: held to the end, or moved to
+# host memory at block 1 or at block 3 (the blocks before it held)
+HOLDS = {"held": None, "moved_at_1": 1, "moved_at_3": 3}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,12 +61,12 @@ def _synth():
 
 
 # case -> (matrix, config): SLIM at full width on the vendored synth set
-# (3 blocks), the compact screen path and FSLIM's compact path (400 items
+# (5 blocks), the compact screen path and FSLIM's compact path (400 items
 # at npad 512 above a compact threshold of 64, 7 blocks: the screen's four
 # on unions 256 and 384 wide, ids through S, three snapped to full width;
 # FSLIM's all on unions of 256)
 CASES = {
-    "synth": (_synth, dict(l1r=1.0, l2r=1.0, block_size=100)),
+    "synth": (_synth, dict(l1r=1.0, l2r=1.0, block_size=64)),
     "compact": (lambda: _rand(31, 150, 400, 0.03),
                 dict(l1r=3.0, l2r=1.0, block_size=64, optTol=1e-5,
                      compact_threshold=64)),
@@ -78,44 +83,75 @@ def _mat(case):
     return _MATS[case]
 
 
-def _learn(monkeypatch, depth, mat, cfg, **kw):
-    """estimate_model_cd on the CPU at the given SLIM_HARVEST_CHUNK."""
-    if depth is None:
-        monkeypatch.delenv("SLIM_HARVEST_CHUNK", raising=False)
-    else:
-        monkeypatch.setenv("SLIM_HARVEST_CHUNK", depth)
+def _native_assemble(coord, target, vals, n):
+    """``_assemble``'s reference: ``native.csr_from_blocks`` over the same
+    blocks, as host arrays."""
+    host = [[a.cpu().numpy() for a in lst] for lst in (coord, target, vals)]
+    return CSR.from_arrays(n, n, *native.csr_from_blocks(*host, n))
+
+
+def _as_reference(monkeypatch, sizes):
+    """Learns assemble through :func:`_native_assemble`; each held block's
+    entry count is appended to ``sizes``, in order."""
+    real = C._Held.add
+
+    def add(self, rec, key=0):
+        sizes.append(len(rec.vals))
+        return real(self, rec, key)
+
+    monkeypatch.setattr(C._Held, "add", add)
+    monkeypatch.setattr(C, "_assemble", _native_assemble)
+
+
+def _move_at(monkeypatch, at, sizes):
+    """Entries moved to host memory at held block ``at`` (None: held to
+    the end): the card's budget patched to the bytes of the blocks before
+    it (``sizes``: each block's entry count)."""
+    if at is not None:
+        assert sizes[at] > 0, "the block that moves them holds no entry"
+        budget = 12 * sum(sizes[:at])
+        monkeypatch.setattr(C, "_card_budget", lambda dev: budget)
+
+
+_REF = {}
+
+
+def _reference(case, kind="cold"):
+    """((model, stats), held blocks' entry counts) of the case's learn
+    through the reference assembly (cached per module)."""
+    key = (case, kind)
+    if key not in _REF:
+        mp, sizes = pytest.MonkeyPatch(), []
+        try:
+            _as_reference(mp, sizes)
+            _REF[key] = (_learn(case, kind), sizes)
+        finally:
+            mp.undo()
+    return _REF[key]
+
+
+def _learn(case, kind):
+    """The learn of ``case`` on the CPU: cold; warm from the reference's
+    cold model (``imodel``); warm from a retained pack (``warm_pack``, the
+    reference learn's with keep_device_model); or keeping its device
+    model."""
+    mat, cfg = _mat(case), SlimConfig(**CASES[case][1])
+    kw = {}
+    if kind == "imodel":
+        cfg, kw = cfg.replace(l1r=cfg.l1r * 1.5), dict(
+            imodel=_reference(case)[0][0])
+    elif kind == "keep":
+        kw = dict(keep_device_model=True)
+    elif kind == "warm_pack":
+        cfg, kw = cfg.replace(l1r=cfg.l1r * 1.5), dict(
+            warm_pack=_reference(case, "keep")[0][1]["W_dev"])
     return C.estimate_model_cd(mat, cfg, device="cpu", **kw)
 
 
-_SERIAL = {}
-
-
-def _serial(case, kind="cold"):
-    """The case's learn at SLIM_HARVEST_CHUNK=0 (cached per module)."""
-    key = (case, kind)
-    if key not in _SERIAL:
-        mp = pytest.MonkeyPatch()
-        try:
-            _SERIAL[key] = _run(mp, "0", case, kind)
-        finally:
-            mp.undo()
-    return _SERIAL[key]
-
-
-def _run(monkeypatch, depth, case, kind):
-    """The learn of ``case``: cold; warm from the serial cold model
-    (``imodel``); warm from a retained pack (``warm_pack``, the serial
-    learn's with keep_device_model); or keeping its device model."""
-    mat, cfg = _mat(case), SlimConfig(**CASES[case][1])
-    if kind == "cold":
-        return _learn(monkeypatch, depth, mat, cfg)
-    if kind == "imodel":
-        return _learn(monkeypatch, depth, mat, cfg.replace(l1r=cfg.l1r * 1.5),
-                      imodel=_serial(case)[0])
-    if kind == "keep":
-        return _learn(monkeypatch, depth, mat, cfg, keep_device_model=True)
-    return _learn(monkeypatch, depth, mat, cfg.replace(l1r=cfg.l1r * 1.5),
-                  warm_pack=_serial(case, "keep")[1]["W_dev"])
+def _run(monkeypatch, hold, case, kind="cold"):
+    """The learn of ``case`` with its entries where ``hold`` says."""
+    _move_at(monkeypatch, HOLDS[hold], _reference(case, kind)[1])
+    return _learn(case, kind)
 
 
 def _same(got, ref):
@@ -130,25 +166,32 @@ def _same(got, ref):
         assert s[k] == t[k], k
 
 
-@pytest.mark.parametrize("depth", DEPTHS)
+def _moves(caplog):
+    """The messages of the moves to host memory logged."""
+    return [r.getMessage() for r in caplog.records
+            if "held in host memory" in r.getMessage()]
+
+
+@pytest.mark.parametrize("hold", HOLDS)
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_pipelined_equals_serial(monkeypatch, case, depth):
-    got = _run(monkeypatch, depth, case, "cold")
-    _same(got, _serial(case))
+def test_learn_equals_reference_assembly(monkeypatch, case, hold):
+    got = _run(monkeypatch, hold, case)
+    _same(got, _reference(case)[0])
     assert set(C.WAITS) <= set(got[1]["phases"])
+    assert got[1]["assembly"] == "host"
 
 
-@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("hold", HOLDS)
 @pytest.mark.parametrize("kind", ["imodel", "warm_pack"])
-def test_warm_pipelined_equals_serial(monkeypatch, kind, depth):
-    _same(_run(monkeypatch, depth, "compact", kind),
-          _serial("compact", kind))
+def test_warm_learn_equals_reference_assembly(monkeypatch, kind, hold):
+    _same(_run(monkeypatch, hold, "compact", kind),
+          _reference("compact", kind)[0])
 
 
-@pytest.mark.parametrize("depth", DEPTHS)
-def test_keep_device_model_pipelined(monkeypatch, depth):
-    got = _run(monkeypatch, depth, "compact", "keep")
-    ref = _serial("compact", "keep")
+@pytest.mark.parametrize("hold", HOLDS)
+def test_keep_device_model_equals_reference_assembly(monkeypatch, hold):
+    got = _run(monkeypatch, hold, "compact", "keep")
+    ref = _reference("compact", "keep")[0]
     _same(got, ref)
     a, b = got[1]["W_dev"], ref[1]["W_dev"]
     for k in ("vals", "idx"):
@@ -156,6 +199,52 @@ def test_keep_device_model_pipelined(monkeypatch, depth):
     for k in ("run_starts", "run_lens", "p_pad", "posmap_pad"):
         np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
     assert torch.equal(a.densify(), b.densify())
+
+
+@pytest.mark.parametrize("hold", HOLDS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_held_entries_move_once_at_the_budget(monkeypatch, caplog, case,
+                                             hold):
+    """The budget is read once, at the first held block; the entries move
+    to host memory once, at the block that passes it, with the blocks held
+    before it; the model is the reference's."""
+    reads = []
+    _move_at(monkeypatch, HOLDS[hold], _reference(case)[1])
+    budget = C._card_budget
+    monkeypatch.setattr(C, "_card_budget",
+                        lambda dev: reads.append(dev) or budget(dev))
+    with caplog.at_level(logging.INFO, logger="slim_tpu_torch"):
+        got = _learn(case, "cold")
+    _same(got, _reference(case)[0])
+    assert reads == [torch.device("cpu")]
+    at, moves = HOLDS[hold], _moves(caplog)
+    assert len(moves) == (at is not None)
+    assert all(f"after {at} held blocks" in m for m in moves)
+
+
+def test_move_at_the_first_block(monkeypatch, caplog):
+    """A budget of no byte moves the entries at the first block, none
+    held before it: the reference's model."""
+    monkeypatch.setattr(C, "_card_budget", lambda dev: 0)
+    with caplog.at_level(logging.INFO, logger="slim_tpu_torch"):
+        got = _learn("fslim_compact", "cold")
+    _same(got, _reference("fslim_compact")[0])
+    assert len(_moves(caplog)) == 1
+    assert "after 0 held blocks" in _moves(caplog)[0]
+
+
+def test_assembly_where():
+    """``stats["assembly"]``: "host" for a CPU learn and for a learn whose
+    entries moved; "card" while a holder's entries are on a CUDA device,
+    "host" once they moved."""
+    assert _reference("synth")[0][1]["assembly"] == "host"
+    held = C._Held(torch.device("cpu"))
+    assert held.where == "host"
+    held = C._Held(torch.device("cuda"))       # nothing added: no card
+    assert held.where == "card"
+    held._move()
+    assert held.where == "host" and held.dev == torch.device("cpu")
+    assert C._card_budget(torch.device("cpu")) == float("inf")
 
 
 def _as_jax(stats, mat, cfg, **kw):
@@ -169,35 +258,22 @@ def _as_jax(stats, mat, cfg, **kw):
 @pytest.mark.parametrize("case,kind", [
     ("synth", "cold"), ("compact", "cold"), ("fslim_compact", "cold"),
     ("compact", "imodel"), ("compact", "warm_pack")])
-def test_pipelined_as_jax(monkeypatch, case, kind):
-    """The default pipelined learn against the JAX package's learn; both
-    warm starts against its ``imodel`` warm start from the same model."""
-    _, stats = _run(monkeypatch, None, case, kind)
+def test_learn_as_jax(case, kind):
+    """The learn against the JAX package's learn; both warm starts against
+    its ``imodel`` warm start from the same model."""
+    _, stats = _learn(case, kind)
     cfg = SlimConfig(**CASES[case][1])
     if kind == "cold":
         _as_jax(stats, _mat(case), cfg)
         return
-    m0 = _serial(case)[0]
+    m0 = _reference(case)[0][0]
     _as_jax(stats, _mat(case), cfg.replace(l1r=cfg.l1r * 1.5),
             imodel=JCSR.from_arrays(m0.nrows, m0.ncols, m0.indptr,
                                     m0.indices, m0.data))
 
 
-def test_pipelined_equals_serial_under_fast_switching(monkeypatch):
-    """The main thread and the worker interleaved every microsecond: the
-    queue's order, the failure flag and the worker's seconds still give
-    the serial learn."""
-    old = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
-    try:
-        got = _run(monkeypatch, "1", "fslim_compact", "cold")
-    finally:
-        sys.setswitchinterval(old)
-    _same(got, _serial("fslim_compact"))
-
-
 # --------------------------------------------------------------------- #
-# checkpoints: written by the worker, in block order
+# checkpoints: written on the main thread, in block order
 # --------------------------------------------------------------------- #
 @pytest.fixture
 def saves(monkeypatch):
@@ -223,20 +299,32 @@ def _arrays(path):
         return {k: z[k] for k in z.files}
 
 
-@pytest.mark.parametrize("depth", DEPTHS)
-def test_checkpoints_in_block_order(monkeypatch, tmp_path, saves, depth):
-    mat, kw = _mat("compact"), CASES["compact"][1]
-    serial = _learn(monkeypatch, "0", mat, SlimConfig(
-        **kw, checkpoint_dir=str(tmp_path / "serial")))
+def _ckpt_learn(tmp, **kw):
+    return C.estimate_model_cd(_mat("compact"), SlimConfig(
+        **CASES["compact"][1], checkpoint_dir=str(tmp)), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("hold", HOLDS)
+def test_checkpoints_in_block_order(monkeypatch, tmp_path, saves, hold):
+    """The checkpointed learn against the reference's checkpointed learn:
+    the same model, the same files, written in block order on the main
+    thread in the phase ``checkpoint``."""
+    with pytest.MonkeyPatch.context() as mp:
+        sizes = []
+        _as_reference(mp, sizes)
+        ref = _ckpt_learn(tmp_path / "ref")
     nblocks = len(saves)
-    assert [b for b, _ in saves] == list(range(nblocks))
+    assert [b for b, _ in saves] == list(range(nblocks)) == \
+        list(range(len(sizes)))
     saves.clear()
-    got = _learn(monkeypatch, depth, mat, SlimConfig(
-        **kw, checkpoint_dir=str(tmp_path / "pipe")))
-    _same(got, serial)
-    assert [b for b, _ in saves] == list(range(nblocks))
-    assert all(t.startswith("slim-harvest") for _, t in saves)
-    a, b = _files(str(tmp_path / "serial")), _files(str(tmp_path / "pipe"))
+    _move_at(monkeypatch, HOLDS[hold], sizes)
+    got = _ckpt_learn(tmp_path / "got")
+    _same(got, ref)
+    _same(got, _reference("compact")[0])
+    main = threading.main_thread().name
+    assert saves == [(b, main) for b in range(nblocks)]
+    assert got[1]["phases"]["checkpoint"] > 0
+    a, b = _files(str(tmp_path / "ref")), _files(str(tmp_path / "got"))
     assert sorted(a) == sorted(b) == list(range(nblocks))
     for blk in a:
         x, y = _arrays(a[blk]), _arrays(b[blk])
@@ -246,19 +334,17 @@ def test_checkpoints_in_block_order(monkeypatch, tmp_path, saves, depth):
             assert x[k].dtype == y[k].dtype
 
 
-def test_resume_after_every_third_file_lost(monkeypatch, tmp_path, saves):
-    """Pipelined: delete every third block file, resume bit-equal,
-    re-writing exactly those blocks, in order."""
-    mat, kw = _mat("compact"), CASES["compact"][1]
-    cfg = SlimConfig(**kw, checkpoint_dir=str(tmp_path))
-    first = _learn(monkeypatch, None, mat, cfg)
+def test_resume_after_every_third_file_lost(tmp_path, saves):
+    """Delete every third block file, resume bit-equal, re-writing
+    exactly those blocks, in order."""
+    first = _ckpt_learn(tmp_path)
     files = _files(str(tmp_path))
     lost = sorted(files)[::3]
     before = {b: _arrays(files[b]) for b in lost}
     for b in lost:
         os.remove(files[b])
     saves.clear()
-    again = _learn(monkeypatch, None, mat, cfg)
+    again = _ckpt_learn(tmp_path)
     _same(again, first)
     assert [b for b, _ in saves] == lost
     files = _files(str(tmp_path))
@@ -269,10 +355,29 @@ def test_resume_after_every_third_file_lost(monkeypatch, tmp_path, saves):
     assert "restore" in again[1]["phases"]
 
 
+def test_resumed_learn_mixes_restored_and_solved_blocks(
+        monkeypatch, caplog, tmp_path, saves):
+    """Blocks 0, 2 and 5 solved again between restored ones (their arrays
+    uploaded as tensors), the entries moved to host memory at block 3, a
+    restored one: the reference's model, and a keep_device_model learn
+    keeps none."""
+    _ckpt_learn(tmp_path)
+    files = _files(str(tmp_path))
+    for b in (0, 2, 5):
+        os.remove(files[b])
+    saves.clear()
+    _move_at(monkeypatch, 3, _reference("compact")[1])
+    with caplog.at_level(logging.INFO, logger="slim_tpu_torch"):
+        got = _ckpt_learn(tmp_path, keep_device_model=True)
+    _same(got, _reference("compact")[0])
+    assert [b for b, _ in saves] == [0, 2, 5]
+    assert got[1]["W_dev"] is None and "restore" in got[1]["phases"]
+    assert ["after 3 held blocks" in m for m in _moves(caplog)] == [True]
+
+
 def test_failing_block_fails_the_learn(monkeypatch, tmp_path):
-    """A block whose host completion raises makes the learn raise, and no
+    """A block whose checkpoint write raises makes the learn raise, and no
     later block's file is written after it."""
-    mat, kw = _mat("compact"), CASES["compact"][1]
     real = C._Checkpoint.save
 
     def save(self, blk, rec):
@@ -282,83 +387,56 @@ def test_failing_block_fails_the_learn(monkeypatch, tmp_path):
 
     monkeypatch.setattr(C._Checkpoint, "save", save)
     with pytest.raises(OSError, match="disk full"):
-        _learn(monkeypatch, "3", mat, SlimConfig(
-            **kw, checkpoint_dir=str(tmp_path)))
+        _ckpt_learn(tmp_path)
     assert sorted(_files(str(tmp_path))) == [0]
-
-
-def test_next_solve_runs_while_a_block_completes(monkeypatch, tmp_path):
-    """With blocks in flight, block 0's host completion is still running
-    when block 2's solve starts: the worker's checkpoint write of block 0
-    waits for that solve (a serial harvest would wait for ever: the wait
-    is bounded and must not time out)."""
-    mat, kw = _mat("compact"), CASES["compact"][1]
-    started = threading.Event()
-    real_save = C._Checkpoint.save
-
-    def save(self, blk, rec):
-        if blk == 0:
-            assert started.wait(30), "block 2 did not solve during block 0"
-        return real_save(self, blk, rec)
-
-    def watch(real, at):
-        def solve(*a, **k):
-            if int(a[at][0]) == 2 * kw["block_size"]:
-                started.set()
-            return real(*a, **k)
-        return solve
-
-    monkeypatch.setattr(C._Checkpoint, "save", save)
-    monkeypatch.setattr(C, "cd_solve_block_compact",
-                        watch(C.cd_solve_block_compact, 2))
-    monkeypatch.setattr(C, "cd_solve_block_ids",
-                        watch(C.cd_solve_block_ids, 1))
-    got = _learn(monkeypatch, "3", _mat("compact"), SlimConfig(
-        **kw, checkpoint_dir=str(tmp_path)))
-    _same(got, _serial("compact"))
 
 
 # --------------------------------------------------------------------- #
 # the packed grid
 # --------------------------------------------------------------------- #
 # a 2 x 2 grid over 100 items: 400 virtual columns in 7 blocks of 64,
-# blocks 1, 3 and 5 holding the columns of two points
+# blocks 1, 3 and 5 holding the columns of two points (10 held parts)
 GRID = [(0.5, 0.5), (0.5, 2.0), (2.0, 0.5), (2.0, 2.0)]
 GRID_CFG = dict(block_size=64, optTol=1e-5)
-_GRID_SERIAL = []
 
 
-def _grid(monkeypatch, depth):
-    if depth is None:
-        monkeypatch.delenv("SLIM_HARVEST_CHUNK", raising=False)
-    else:
-        monkeypatch.setenv("SLIM_HARVEST_CHUNK", depth)
+def _grid():
     if "grid" not in _MATS:
         _MATS["grid"] = _rand(33, 80, 100, 0.1)
     return C.estimate_grid_cd(_MATS["grid"], SlimConfig(**GRID_CFG), GRID,
                               device="cpu")
 
 
-@pytest.mark.parametrize("depth", DEPTHS)
-def test_grid_pipelined_equals_serial(monkeypatch, depth):
-    if not _GRID_SERIAL:
-        _GRID_SERIAL.append(_grid(monkeypatch, "0"))
-    got = _grid(monkeypatch, depth)
+def _grid_reference():
+    if "grid" not in _REF:
+        with pytest.MonkeyPatch.context() as mp:
+            sizes = []
+            _as_reference(mp, sizes)
+            _REF["grid"] = (_grid(), sizes)
+    return _REF["grid"]
+
+
+@pytest.mark.parametrize("hold", HOLDS)
+def test_grid_equals_reference_assembly(monkeypatch, hold):
+    ref, sizes = _grid_reference()
+    assert len(sizes) == 10
+    _move_at(monkeypatch, HOLDS[hold], sizes)
+    got = _grid()
     assert len(got) == len(GRID)
-    for g, r in zip(got, _GRID_SERIAL[0]):
+    for g, r in zip(got, ref):
         _same(g, r)
-    if depth is None:
+    if hold == "held":
         m = _MATS["grid"]
-        ref = jax_grid(JCSR.from_arrays(m.nrows, m.ncols, m.indptr,
-                                        m.indices, m.data),
-                       JaxConfig(**GRID_CFG), GRID)
-        for (_, s), (_, t) in zip(got, ref):
+        jref = jax_grid(JCSR.from_arrays(m.nrows, m.ncols, m.indptr,
+                                         m.indices, m.data),
+                        JaxConfig(**GRID_CFG), GRID)
+        for (_, s), (_, t) in zip(got, jref):
             np.testing.assert_allclose(s["loss"], t["loss"], rtol=1e-4)
             assert abs(s["nnz"] - t["nnz"]) <= max(2, 0.01 * t["nnz"])
 
 
 # --------------------------------------------------------------------- #
-# the card route's assembly, run on CPU tensors
+# the assembly
 # --------------------------------------------------------------------- #
 # n^2 < 2^31 up to n = 46,340
 WIDE_N = {"wide": 50_000, "edge32": 46_340, "edge64": 46_341}
@@ -399,14 +477,12 @@ def _fragments(case):
 
 @pytest.mark.parametrize("case", ["shuffled", "none", "full_row",
                                   *WIDE_N])
-def test_card_assembly_equals_native(case):
-    """``_assemble_on_card`` on CPU tensors: entry for entry the native
-    counting sort's CSR and scipy's over the concatenation."""
-    from slim_tpu_torch import native
-
+def test_assembly_equals_native(case):
+    """``_assemble`` on CPU tensors: entry for entry the native counting
+    sort's CSR and scipy's over the concatenation."""
     frags, n = _fragments(case)
     lists = [[f[i] for f in frags] for i in range(3)]
-    got = C._assemble_on_card(
+    got = C._assemble(
         *[[torch.from_numpy(a) for a in lst] for lst in lists], n)
     indptr, indices, data = native.csr_from_blocks(*lists, n)
     cat = [np.concatenate(lst) if lst else np.zeros(0, dt)
@@ -424,50 +500,32 @@ def test_card_assembly_equals_native(case):
         assert got.indptr[12] == got.indptr[11]
 
 
-@pytest.mark.parametrize("spill", [False, True])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_card_route_learn_equals_host(monkeypatch, case, spill):
-    """The learn with the card route forced on the CPU (the blocks'
-    entries held, then ``_assemble_on_card``) equals the host route's
-    serial learn; with the card's room for half the model's entries,
-    the blocks held by then go to the host and the learn ends on the host
-    route, the same model again."""
-    ref = _serial(case)          # on the host route, before the patches
-    monkeypatch.setattr(C, "assembly_route", lambda *a: "card")
-    # room for half the model's entries, or for all of them
-    monkeypatch.setattr(C, "_card_budget", lambda dev: 12 * ref[0].nnz
-                        // (2 if spill else 1))
-    got = _run(monkeypatch, None, case, "cold")
-    _same(got, ref)
-    assert ref[1]["assembly"] == "host"
-    assert got[1]["assembly"] == ("host" if spill else "card")
-    assert not got[1]["harvest_worker"] or spill
-
-
-def test_assembly_route_choice():
-    """The card route only on a CUDA device with no checkpoints and no
-    shard: the CPU, a checkpoint_dir and a shard keep the host's."""
-    cfg, cuda = SlimConfig(), torch.device("cuda")
-    assert C.assembly_route(cuda, cfg, None) == "card"
-    assert C.assembly_route(torch.device("cpu"), cfg, None) == "host"
-    assert C.assembly_route(cuda, cfg.replace(checkpoint_dir="ck"),
-                            None) == "host"
-    assert C.assembly_route(cuda, cfg, (0, 2)) == "host"
-    assert _serial("synth")[1]["assembly"] == "host"
-
-
 # --------------------------------------------------------------------- #
 # the replicated distributed learn (shard=), two gloo ranks
 # --------------------------------------------------------------------- #
-def test_shard_learn_pipelined_equals_serial():
+def _shard_learn(kind, mat, cfg, mesh=None):
+    """A rank's ``distributed_learn``: its entries held (``held``), moved
+    to host memory at its first block and after the gather (``moved``), or
+    assembled by the reference (``reference``)."""
+    with pytest.MonkeyPatch.context() as mp:
+        if kind == "moved":
+            mp.setattr(C, "_card_budget", lambda dev: 0)
+        elif kind == "reference":
+            _as_reference(mp, [])
+        return D.distributed_learn(mat, cfg, mesh)
+
+
+def test_shard_learn_equals_reference():
     mat, kw = _mat("compact"), CASES["compact"][1]
     cfg = SlimConfig(**kw)
-    calls = [L.Call("pipelined", D.distributed_learn, (mat, cfg)),
-             L.Call("serial", D.distributed_learn, (mat, cfg),
-                    env={"SLIM_HARVEST_CHUNK": "0"})]
+    calls = [L.Call(k, _shard_learn, (k, mat, cfg))
+             for k in ("held", "moved", "reference")]
     ranks = L.run_world(L.run_calls, 2, args=(calls, "cpu"), device="cpu",
                         backend="gloo")
+    ref = ranks[0]["reference"]["result"]
     for r in ranks:
-        _same(r["pipelined"]["result"], r["serial"]["result"])
-    _same(ranks[0]["pipelined"]["result"], ranks[1]["pipelined"]["result"])
-    _as_jax(ranks[0]["pipelined"]["result"][1], mat, cfg)
+        for k in ("held", "moved", "reference"):
+            _same(r[k]["result"], ref)
+            assert r[k]["result"][1]["assembly"] == "host"
+    _same(ref, _reference("compact")[0])
+    _as_jax(ref[1], mat, cfg)

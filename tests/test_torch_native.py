@@ -1,7 +1,8 @@
 """The port's native host runtime (slim_tpu_torch.native) against the JAX
-package, scipy and the float64 oracle of test_cd.py, and its five call
-sites: the text tokeniser, the host Gram, the model assembly, the
-small-catalogue predict route and SLIM.predict.  Nothing here uses
+package, scipy and the float64 oracle of test_cd.py, and its four call
+sites: the text tokeniser, the host Gram, the small-catalogue predict
+route and SLIM.predict; its model assembly (``csr_from_blocks``) is the
+reference the learn's own assembly is held to.  Nothing here uses
 slim_tpu.native; the router's JAX side gets a stub for its availability."""
 
 import os
@@ -263,22 +264,30 @@ def test_csr_from_blocks_rejects_bad_rows():
                                [np.ones(1, np.float32)], 3)
 
 
+def _native_assemble(coord, target, vals, n):
+    """``native.csr_from_blocks`` over ``solvers.cd._assemble``'s lists of
+    tensors, as host arrays."""
+    host = [[a.cpu().numpy() for a in lst] for lst in (coord, target, vals)]
+    return CSR.from_arrays(n, n, *native.csr_from_blocks(*host, n))
+
+
 def test_learn_same_model_either_assembly(monkeypatch):
-    """The synth learn gives the same model with the native assembly and
-    with scipy's (where no compiler is found), and takes the native one
-    when there is one."""
+    """The synth learn gives the same model through its own assembly (the
+    held entries sorted, with no native call, with or without a compiler)
+    and with the assembly replaced by the native counting sort over the
+    same blocks."""
     trn = tio.read_matrix(os.path.join(DATA, "synth-train.ijv"), fmt="ijv")
     cfg = SlimConfig(l1r=1.0, l2r=1.0)
     calls = []
     orig = native.csr_from_blocks
     monkeypatch.setattr(native, "csr_from_blocks",
                         lambda *a: calls.append(1) or orig(*a))
-    m1, s1 = tcd.estimate_model_cd(trn, cfg, device="cpu")
-    assert calls
     monkeypatch.setattr(native, "available", lambda: False)
-    calls.clear()
+    m1, s1 = tcd.estimate_model_cd(trn, cfg, device="cpu")
+    assert not calls and s1["assembly"] == "host"
+    monkeypatch.setattr(tcd, "_assemble", _native_assemble)
     m0, s0 = tcd.estimate_model_cd(trn, cfg, device="cpu")
-    assert not calls
+    assert calls
     np.testing.assert_array_equal(m1.indptr, m0.indptr)
     np.testing.assert_array_equal(m1.indices, m0.indices)
     np.testing.assert_array_equal(m1.data, m0.data)
@@ -438,20 +447,21 @@ def test_slim_predict_skips_dense_model(routed, tmp_path, monkeypatch):
 
 
 def test_call_sites_without_a_compiler(monkeypatch, tmp_path):
-    """Where no C++ compiler is found the five call sites take their numpy
-    / scipy / device paths, with the same results."""
+    """Where no C++ compiler is found the four call sites take their numpy
+    / scipy / device paths, with the same results, and the learn's
+    assembly (which needs no compiler) equals the native one."""
     trn = tio.read_matrix(os.path.join(DATA, "synth-train.csr"), fmt="csr")
     rng = np.random.default_rng(9)
     frag = [np.array([3, 0, 3], np.int32), np.array([1, 2, 0], np.int32),
             rng.random(3).astype(np.float32)]
     native_ = (trn, compute_gram(trn, "host", device="cpu").numpy(),
-               tcd._assemble(*[[a] for a in frag], 5))
+               _native_assemble(*[[torch.from_numpy(a)] for a in frag], 5))
     monkeypatch.setattr(native, "available", lambda: False)
     monkeypatch.setenv("SLIM_PREDICT_NATIVE_NPAD", "4096")
     plain = (tio.read_matrix(os.path.join(DATA, "synth-train.csr"),
                              fmt="csr"),
              compute_gram(trn, "host", device="cpu").numpy(),
-             tcd._assemble(*[[a] for a in frag], 5))
+             tcd._assemble(*[[torch.from_numpy(a)] for a in frag], 5))
     for a, b in (native_[0], plain[0]), (native_[2], plain[2]):
         np.testing.assert_array_equal(a.indptr, b.indptr)
         np.testing.assert_array_equal(a.indices, b.indices)
