@@ -34,7 +34,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      cap of 40, half at 1 with 60, each screened at its own l1r, the cap
      reached in the sweep) on the whole-array sweep at B 512, npad 4096,
      and on the coordinate-major sweep at B 1024, npad 28672, 38 of 56
-     groups active.  Each line gives the
+     groups active.  The coordinate-major sweep's window flush alone at
+     the ML-20M shape (B 1024, npad 28672, 56/56) on a random normal G:
+     one window on a q ~100 times its increment against its plain version
+     (1e-5 of the increment plus 2 ulps of q), then the 14 windows of a
+     sweep timed by CUDA events beside their bound (bf16x3 operations at
+     989 TFLOP/s against bytes at 3.35 TB/s), the ``flush:`` line; and its TMA ring
+     alone (``feed_only``: no product, no q), the ``flush feed:`` line,
+     with the bytes it stages from L2 a second and the product rate that
+     feed could carry.  Each check line gives the
      max error, the kernel's and the plain version's times, the bound (the
      larger of the bytes the function must move over 3.35 TB/s and its
      operations over the peak of their type) with what sets it, the
@@ -216,6 +224,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      must launch its own kernels (PATH_KERNELS) and no other (phase 8: no
      kernel at all).  A kernel's
      ``launches`` is the sum of its per-path counts (``launches_by_path``)
+     (a ``launches`` line whose path ran the coordinate-major sweep also
+     gives ``cd_sweep_large.flush_launches``, its window flushes)
      in the unit of ``launch_unit``; errors and times come from phase 2, at
      the shape the path runs (``ms``/``plain_ms``) and at the other shapes
      checked (``extra``).
@@ -404,6 +414,7 @@ LAUNCH_UNIT = {"densify": _DENSIFY_UNIT, "densify_bf16": _DENSIFY_UNIT,
 HBM_BPS = 3.35e12
 TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12    # dense bf16 tensor-core rate (the flush's products)
 
 
 def bound(nbytes, flops=0.0, peak=TF32_FLOPS):
@@ -818,6 +829,70 @@ def check_sweep_large(ops, all_active, note=""):
                 shape=_shape(B, npad, args[2], has) + note,
                 tol="x 1e-4, q 1e-4 rel")
     return with_bound(line, *group_sweep_work(npad, B, has.tolist()))
+
+
+def check_flush(ops):
+    """The coordinate-major sweep's window flush alone at ``ops``'s shape
+    (B 1024, npad 28672, every group active) on a random normal G and
+    fresh deltas in all four slots (the time depends on the shape alone;
+    on these values the float32 sums of the kernel and the plain version
+    agree closely, where a Gram's count-sized entries would leave room for
+    the summation order): one window on a q ~100 times its increment
+    against flush_window_plain (within 1e-5 of the largest increment plus
+    two float32 ulps of the largest q), then the sweep's 14 windows timed
+    with CUDA events beside their bound, and the same windows with the TMA
+    ring alone (``feed_only``).  Returns the two lines."""
+    from slim_tpu_torch.ops import cd_sweep as S
+
+    npad, B = ops[0].shape[0], ops[1].shape[0]
+    dev = ops[0].device
+    ng = npad // S.GROUP
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gh, gl = S.split_bf16(torch.randn(npad, npad, device=dev, generator=gen))
+    dh, dl = S.split_bf16(torch.randn(S.K_FLUSH * B * S.GROUP, device=dev,
+                                      generator=gen) * 1e-2)
+    perm = torch.arange(ng, dtype=torch.int32, device=dev)
+    has = torch.ones(ng, dtype=torch.int32, device=dev)
+    q = torch.randn(npad, B, device=dev, generator=gen) * 100.0
+    ref, plain_ms = once_ms(lambda: S.flush_window_plain(
+        gh, gl, dh, dl, perm, has, q.clone(), 0, S.K_FLUSH))
+    got = S.flush_window(gh, gl, dh, dl, perm, has, q.clone(), 0, S.K_FLUSH)
+    err = (got - ref).abs().max().item()
+    tol = 1e-5 * (ref - q).abs().max().item() \
+        + 2 * torch.finfo(torch.float32).eps * ref.abs().max().item()
+    check(err <= tol, f"flush: q err {err} above {tol}")
+    err /= ref.abs().max().item()
+    windows = range(0, ng, S.K_FLUSH)
+
+    def sweep(feed_only):
+        for g0 in windows:
+            S.flush_window(gh, gl, dh, dl, perm, has, q, g0,
+                           min(S.K_FLUSH, ng - g0), feed_only)
+
+    bn = S._flush_bn(npad, B)
+    flops = 3 * 2.0 * npad * B * S.GROUP * ng
+    # per window: G's halves of the window's columns once, q in and out
+    nbytes = len(windows) * (4.0 * npad * S.GROUP * S.K_FLUSH
+                             + 8.0 * npad * B)
+    ms = cuda_ms(lambda: sweep(False), 10)
+    bound_ms, by = bound(nbytes, flops, BF16_FLOPS)
+    shape = f"B={B} npad={npad} active={ng}/{ng} windows={len(windows)}"
+    line = dict(name="flush", source="slim_tpu_torch/csrc/sweep_large.cu",
+                q_rel_err=err, tol="1e-5 of the increment + 2 ulp of q",
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, share=bound_ms / ms, tflops=flops / ms / 1e9,
+                tile=f"128x{bn}", shape=shape, card=card_line())
+    feed_ms = cuda_ms(lambda: sweep(True), 10)
+    # each block stages per k-tile its 128 G rows and half the D tile's
+    # rows (the other half comes multicast from its cluster peer), hi + lo
+    tiles = npad // 128 * -(-B // bn)
+    staged = len(windows) * tiles * S.K_FLUSH * (S.GROUP // 32) * 32 * 4 \
+        * (128 + bn // 2)
+    feed = dict(name="flush_feed", ms=feed_ms, l2_gbps=staged / feed_ms / 1e6,
+                feeds_tflops=flops / feed_ms / 1e9,
+                feeds_share=flops / feed_ms / 1e9 / (BF16_FLOPS / 1e12),
+                tile=f"128x{bn}", shape=shape, card=card_line())
+    return line, feed
 
 
 def _panel_args(ops, all_active):
@@ -2888,6 +2963,9 @@ def kernel_checks(dev, trn, profile=None):
                check_sweep(mixed_regs(row[1]), note=" mixed regs"),
                check_sweep_large(mixed_regs(large), all_active=False,
                                  note=" mixed regs")]
+    flush, feed = check_flush(large)
+    print("flush:", json.dumps(flush), flush=True)
+    print("flush feed:", json.dumps(feed), flush=True)
     if profile is not None:
         profile_sweep(large, row[1], profile)
     del large, row
@@ -2991,9 +3069,14 @@ def main(argv=None):
         drives = tuple(d for d in drives if d[0] == "cli")
     by_path = {}
 
-    def path_launched(path, counts):
+    from slim_tpu_torch.ops.cd_sweep import cd_sweep_large
+
+    def path_launched(path, counts, flushes=None):
         by_path[path] = counts
-        print(f"launches {path}:", json.dumps(counts), flush=True)
+        shown = dict(counts)
+        if counts["cd_sweep_large"] and flushes is not None:
+            shown["cd_sweep_large.flush_launches"] = flushes
+        print(f"launches {path}:", json.dumps(shown), flush=True)
         missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
         check(not missing, f"{path} path launched no {missing}: {counts}")
         stray = [k for k, v in counts.items()
@@ -3009,8 +3092,10 @@ def main(argv=None):
     for path, drive in drives:
         for w in wrappers.values():
             w.launches = 0
+        cd_sweep_large.flush_launches = 0
         results[path] = drive()
-        path_launched(path, {k: w.launches for k, w in wrappers.items()})
+        path_launched(path, {k: w.launches for k, w in wrappers.items()},
+                      cd_sweep_large.flush_launches)
         if path in gates:
             results[path] = gates[path](results[path])
         lap(path)

@@ -38,7 +38,9 @@ _SIGNATURES = {
     "slim_densify": [_P] * 4 + [_LL] + [_I] * 5 + [_P, _LL, _I, _I, _P],
     "slim_pack": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "slim_cd_sweep": [_P] * 12 + [_I] * 3 + [_P] * 6,
-    "slim_cd_sweep_large": [_P] * 12 + [_I] * 3 + [_P] * 7,
+    "slim_cd_sweep_large": [_P] * 12 + [_I] * 3 + [_P] * 6 + [_I, _P, _P],
+    "slim_flush": [_P] * 7 + [_I] * 6 + [_P],
+    "slim_flush_clusters": [],
     "slim_cd_sweep_panel": [_I] + [_P] * 12 + [_I] * 3 + [_P] * 7,
 }
 

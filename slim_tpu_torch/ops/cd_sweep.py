@@ -17,6 +17,8 @@ Two CUDA engines carry four entry points:
   bf16x3: G and the deltas are each split into two bfloat16 halves
   (:func:`split_bf16`, made once per G) and three products are summed in
   float32.  The TPU kernel's live-panel list (``panarr``) is not kept.
+  Its window flush is a kernel of its own (:func:`flush_window` runs one
+  window alone, at the tile width :func:`flush_tile_n` picks).
 * :func:`cd_sweep_v3` and :func:`cd_sweep_eager` (csrc/sweep_panel.cu)
   replace ``_sweep_kernel_large_v3`` / ``pallas_cd_sweep_large_v3`` and
   ``_sweep_kernel_large`` / ``pallas_cd_sweep_large``: row-major
@@ -46,6 +48,8 @@ chooses among the three wide-block sweeps as the JAX package does.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import torch
@@ -256,21 +260,108 @@ def _window_scratch(G, K, B, dev):
     return gh, gl, tile, dh, torch.empty_like(dh)
 
 
+# The flush's time per column of a 128-wide tile over a 256-wide one: on an
+# H100 at npad 28672, B 1024, a sweep's 14 window flushes took 8.71 ms at
+# 128 and 7.65 ms at 256 (128 operations a staged byte against 192)
+_FLUSH_COST_128 = 1.14
+
+
+def flush_tile_n(M: int, N: int, clusters: int) -> int:
+    """Output tile width (256 or 128 columns) of the window flush on an
+    (M, N) q, when ``clusters`` clusters of two 128-row tiles run at once
+    (one block per SM): the width whose persistent waves take the least
+    time, each wave as long as one tile of its width, so that a last wave
+    that leaves many SMs idle counts in full; 256 on a tie."""
+    def waves_time(bn, cost):
+        pairs = M // 256 * -(-N // bn)
+        return -(-pairs // clusters) * bn * cost
+
+    return 256 if waves_time(256, 1.0) <= waves_time(128, _FLUSH_COST_128) \
+        else 128
+
+
+@functools.cache
+def _flush_clusters() -> int:
+    """Clusters of the flush that the card holds at once."""
+    n = _build.lib().slim_flush_clusters()
+    if n <= 0:
+        raise RuntimeError("slim_flush_clusters: the flush kernel does not "
+                           "fit on this card")
+    return n
+
+
+def _flush_bn(M, N):
+    """:func:`flush_tile_n` for the card this process runs on."""
+    return flush_tile_n(M, N, _flush_clusters())
+
+
+def flush_window_plain(gh, gl, dh, dl, perm, has, qT, g0, nslots):
+    """Plain PyTorch version of :func:`flush_window` (same contract)."""
+    npad, B = qT.shape
+    dh, dl = dh.reshape(K_FLUSH, B, GROUP), dl.reshape(K_FLUSH, B, GROUP)
+    perm, has = perm.tolist(), has.tolist()
+    for s in range(nslots):
+        if has[g0 + s]:
+            c = perm[g0 + s] * GROUP
+            ah, al = gh[:, c:c + GROUP].float(), gl[:, c:c + GROUP].float()
+            bh, bl = dh[s].float(), dl[s].float()
+            qT += ah @ bh.T + ah @ bl.T + al @ bh.T
+    return qT
+
+
+def flush_window(gh, gl, dh, dl, perm, has, qT, g0, nslots,
+                 feed_only=False):
+    """One window's flush of the coordinate-major sweep, alone: qT (npad,
+    B) += sum over the slots s < nslots with has[g0 + s] of G[:, group
+    perm[g0 + s]'s columns] . D_s^T in bf16x3 (Gh.Dh + Gh.Dl + Gl.Dh, f32
+    sums); gh / gl (npad, npad) and dh / dl (K_FLUSH * B * GROUP, the
+    (slot, column, coordinate) layout) bfloat16.  Updates qT in place and
+    returns it.  ``feed_only`` (card only) runs the kernel's TMA ring with
+    no product and no access to q: the feed's time alone."""
+    npad, B = qT.shape
+    if qT.device.type == "cpu":
+        if feed_only:
+            raise ValueError("flush_window: feed_only times the card's "
+                             "ring and has no CPU version")
+        return flush_window_plain(gh, gl, dh, dl, perm, has, qT, g0, nslots)
+    if qT.device.type != "cuda":
+        raise ValueError(f"flush_window: unsupported device {qT.device}")
+    halves = (gh, gl, dh, dl)
+    if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
+           for t in halves) or qT.dtype != torch.float32 \
+            or not qT.is_contiguous() or gh.shape != (npad, npad) \
+            or dh.numel() != K_FLUSH * B * GROUP or npad % GROUP:
+        raise ValueError("flush_window: bf16 halves G (npad, npad), D "
+                         "(K_FLUSH * B * GROUP), contiguous f32 qT (npad, "
+                         "B), npad a multiple of GROUP")
+    perm = perm.to(torch.int32).contiguous()
+    has = has.to(torch.int32).contiguous()
+    _build.check(_build.lib().slim_flush(
+        gh.data_ptr(), gl.data_ptr(), dh.data_ptr(), dl.data_ptr(),
+        perm.data_ptr(), has.data_ptr(), qT.data_ptr(), npad, B, g0, nslots,
+        _flush_bn(npad, B), int(feed_only), _build.stream_ptr(qT.device)),
+        "slim_flush")
+    return qT
+
+
 def _launch_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has, B,
                   npad):
-    """One call of csrc/sweep_large.cu (the q tile qg is (GROUP, B))."""
+    """One call of csrc/sweep_large.cu (the q tile qg is (GROUP, B));
+    returns the outputs and the number of flush launches enqueued."""
     xo, qo, lo, nit, dltx = _outputs(xT, qT, live)
     dev = xT.device
     gh, gl, qg, dh, dl = _window_scratch(G, K_FLUSH, B, dev)
     perm, has = perm.contiguous(), has.contiguous()
+    flushes = ctypes.c_int(0)
     _build.check(_build.lib().slim_cd_sweep_large(
         G.data_ptr(), gh.data_ptr(), gl.data_ptr(), gjT.data_ptr(),
         actT.data_ptr(), diag2d.data_ptr(), xo.data_ptr(), qo.data_ptr(),
         live.data_ptr(), regsT.data_ptr(), perm.data_ptr(), has.data_ptr(),
         perm.numel(), B, npad, qg.data_ptr(), dh.data_ptr(),
         dl.data_ptr(), lo.data_ptr(), nit.data_ptr(), dltx.data_ptr(),
+        _flush_bn(npad, B), ctypes.addressof(flushes),
         _build.stream_ptr(dev)), "slim_cd_sweep_large")
-    return xo, qo, lo, nit, dltx
+    return (xo, qo, lo, nit, dltx), flushes.value
 
 
 def cd_sweep(G, gj, act, x, q, live, diag2d, regs, perm, has):
@@ -298,7 +389,10 @@ def cd_sweep_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has):
     (npad, B) int8; live (1, B); regsT (5, B); perm/has (npad // GROUP,)
     int32, groups visited in perm order, a group's chunks in ascending
     order; any npad that is a multiple of GROUP.  Returns (xT', qT' = G xT',
-    live', nit, dltx), the last three (1, B)."""
+    live', nit, dltx), the last three (1, B).  On the card
+    ``cd_sweep_large.flush_launches`` counts the window flushes enqueued,
+    one a window of K_FLUSH positions (a window whose slots have no work
+    launches and does nothing)."""
     npad, B = gjT.shape
     _check(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has, npad, B,
            GROUP)
@@ -308,11 +402,14 @@ def cd_sweep_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm, has):
     if gjT.device.type != "cuda":
         raise ValueError(f"cd_sweep_large: unsupported device {gjT.device}")
     cd_sweep_large.launches += 1
-    return _launch_large(G, gjT, actT, xT, qT, live, diag2d, regsT, perm,
-                         has, B, npad)
+    out, flushes = _launch_large(G, gjT, actT, xT, qT, live, diag2d, regsT,
+                                 perm, has, B, npad)
+    cd_sweep_large.flush_launches += flushes
+    return out
 
 
 cd_sweep_large.launches = 0
+cd_sweep_large.flush_launches = 0
 
 
 def _sweep_panel(wrapper, K, plain, G, gj, act, x, q, live, diag2d, regs,

@@ -232,13 +232,23 @@ def test_row_sweep_kernel_matches_plain(dev, rng, npad, B):
     assert S.cd_sweep.launches == launches + 1
 
 
-@pytest.mark.parametrize("npad,B,has", [(1024, 70, [0, 1]),
-                                        (1536, 33, [1, 0, 1]),
-                                        (4096, 1024, [0, 1, 1, 1, 0, 0, 0, 0])])
+@pytest.mark.parametrize("npad,B,has", [
+    (1024, 70, [0, 1]),
+    (1536, 33, [1, 0, 1]),
+    (4096, 1024, [0, 1, 1, 1, 0, 0, 0, 0]),
+    # FSLIM's v4 union widths at its B: the flush's 128- and 256-wide tiles
+    (6144, 1024, [1] * 12),
+    (8192, 1024, [1] * 16),
+    # B off the flush's tile widths; a window whose middle slot has no work
+    (4096, 1000, [1, 1, 0, 1, 1, 1, 1, 1]),
+    (4096, 654, [1, 0, 1, 1, 1, 1, 0, 1]),
+    # a partial last window of one group
+    (2560, 300, [1, 1, 1, 1, 1])])
 def test_large_sweep_kernel_matches_plain(dev, rng, npad, B, has):
-    """One coordinate-major sweep: partial last windows (2 and 3 groups), a
-    window whose first slot has no work, an all-inactive window, columns
-    with live = 0: x atol 1e-4, q rel 1e-4, live and nit equal."""
+    """One coordinate-major sweep: partial last windows (1, 2 and 3
+    groups), windows whose first or middle slot has no work, an
+    all-inactive window, FSLIM's union widths, B off the flush's tiles,
+    columns with live = 0: x atol 1e-4, q rel 1e-4, live and nit equal."""
     Gm, gj, diag, act, caps, yty = _solve_inputs(dev, rng, 600, npad, B)
     ng = npad // S.GROUP
     x = torch.where(act, torch.rand(act.shape, device=dev) * 0.05, 0.0)
@@ -418,6 +428,67 @@ def test_row_sweep_with_mixed_regs(dev, rng, npad, B):
     assert not torch.equal(other[0][:B // 2], ref[0][:B // 2])
     torch.testing.assert_close(other[0][B // 2:], ref[0][B // 2:], rtol=0,
                                atol=0)
+
+
+@pytest.mark.parametrize("npad,has", [(4096, [1, 1, 1, 1, 0, 0, 0, 0]),
+                                      (2560, [1, 0, 1, 1, 1])])
+def test_flush_launches_count_the_windows(dev, rng, npad, has):
+    """One coordinate-major sweep adds one flush launch a window of K_FLUSH
+    positions, the partial last one too (a window whose slots have no
+    work launches and exits)."""
+    B = 64
+    Gm, gj, diag, act, caps, yty = _solve_inputs(dev, rng, 300, npad, B)
+    ng = npad // S.GROUP
+    xT = torch.zeros(npad, B, device=dev)
+    regsT = torch.tensor([0.3, 0.5, 50.0, 0.0, 1e-7], device=dev)[:, None] \
+        .repeat(1, B).contiguous()
+    args = (Gm, gj.T.contiguous(), act.T.to(torch.int8).contiguous(), xT,
+            Gm @ xT, torch.ones(1, B, device=dev),
+            diag.reshape(1, npad).contiguous(), regsT,
+            torch.randperm(ng, device=dev).to(torch.int32),
+            torch.tensor(has, dtype=torch.int32, device=dev))
+    flushes = S.cd_sweep_large.flush_launches
+    S.cd_sweep_large(*args)
+    torch.cuda.synchronize()
+    assert S.cd_sweep_large.flush_launches == flushes + -(-ng // S.K_FLUSH)
+
+
+@pytest.mark.parametrize("npad,B,has,g0,nslots", [
+    (28672, 1024, [1] * 56, 0, 4),
+    (6144, 1024, [1] * 12, 8, 4),
+    (4096, 654, [1, 1, 1, 1, 1, 0, 1, 1], 4, 4),
+    (2560, 33, [1] * 5, 4, 1),
+    (2048, 256, [0, 0, 0, 0], 0, 4)])
+def test_flush_window_matches_plain(dev, rng, npad, B, has, g0, nslots):
+    """The window flush alone against its plain version: ML-20M's shape,
+    FSLIM's 128-wide tiles, B off the tiles with a slot without work, an
+    odd B in a partial window, a window without work (q untouched).  q is
+    ~100 times the window's increment, and the flush is held to 1e-5 of
+    the largest increment plus two float32 ulps of the largest q: products
+    summed onto q inside the tensor cores (whose f32 sums drop low bits)
+    miss that by far.  The feed-only ring leaves q untouched."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    ng = npad // S.GROUP
+    gh, gl = S.split_bf16(torch.randn(npad, npad, device=dev, generator=gen))
+    dh, dl = S.split_bf16(torch.randn(S.K_FLUSH * B * S.GROUP, device=dev,
+                                      generator=gen) * 1e-2)
+    perm = torch.randperm(ng, device=dev, generator=gen).to(torch.int32)
+    hs = torch.tensor(has, dtype=torch.int32, device=dev)
+    q = torch.randn(npad, B, device=dev, generator=gen) * 100.0
+    ref = S.flush_window_plain(gh, gl, dh, dl, perm, hs, q.clone(), g0,
+                               nslots)
+    got = S.flush_window(gh, gl, dh, dl, perm, hs, q.clone(), g0, nslots)
+    torch.cuda.synchronize()
+    eps = torch.finfo(torch.float32).eps
+    tol = 1e-5 * (ref - q).abs().max().item() \
+        + 2 * eps * ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= tol
+    if not any(has[g0:g0 + nslots]):
+        assert torch.equal(got, q)
+    fed = S.flush_window(gh, gl, dh, dl, perm, hs, q.clone(), g0, nslots,
+                         feed_only=True)
+    torch.cuda.synchronize()
+    assert torch.equal(fed, q)
 
 
 @pytest.mark.parametrize("npad,B,has", [(28672, 1024, None),

@@ -284,3 +284,52 @@ def test_split_made_once_per_g():
     assert b is not a and torch.equal(b[0], G.to(torch.bfloat16))
     H = G.clone()
     assert S._split_of(H) is not b
+
+
+@pytest.mark.parametrize("M,N,clusters,bn", [
+    (28672, 1024, 66, 256),    # ML-20M: 7 waves of 256 or 14 of 128
+    (8192, 1024, 66, 256),     # FSLIM's widest v4 union: 2 waves of 256
+    (6144, 1024, 66, 128),     # 96 pairs of 256 leave a half-empty wave
+    (28672, 654, 66, 256),     # 3 tiles of 256 or 6 of 128, 768 columns
+    (25600, 1024, 66, 256),    # 13 waves of 128 against 7 of 256
+    (28672, 1000, 64, 256)])
+def test_flush_tile_n(M, N, clusters, bn):
+    """The flush's tile width follows the observed (M, N): the width whose
+    waves of ``clusters`` tile pairs take the least time, a 128-wide
+    tile's column at 1.14 times a 256-wide one's."""
+    assert S.flush_tile_n(M, N, clusters) == bn
+
+
+@pytest.mark.parametrize("ngroups,B,has,g0,nslots", [
+    (4, 70, [1, 0, 1, 1], 0, 4),            # a middle slot without work
+    (5, 33, [1, 1, 1, 1, 1], 4, 1),         # a partial last window
+    (8, 16, [1, 1, 1, 1, 0, 0, 0, 0], 4, 4)])   # a window without work
+def test_flush_window_plain_is_the_bf16x3_window_sum(ngroups, B, has, g0,
+                                                     nslots):
+    """flush_window on the CPU adds, for each slot with work, the window
+    group's columns of G times its deltas with the lo . lo term left out
+    (float64 oracle), in place; slots without work add nothing."""
+    rng = np.random.default_rng(ngroups)
+    npad = ngroups * GROUP
+    G = _t(rng.standard_normal((npad, npad)).astype(np.float32))
+    d = _t((rng.standard_normal(K_FLUSH * B * GROUP) * 1e-2)
+           .astype(np.float32))
+    gh, gl = S.split_bf16(G)
+    dh, dl = S.split_bf16(d)
+    perm = _t(rng.permutation(ngroups).astype(np.int32))
+    q = _t(rng.standard_normal((npad, B)).astype(np.float32))
+    f64 = lambda t: t.to(torch.float64)
+    Dh = f64(dh).reshape(K_FLUSH, B, GROUP)
+    Dl = f64(dl).reshape(K_FLUSH, B, GROUP)
+    ref = f64(q)
+    for s in range(nslots):
+        if has[g0 + s]:
+            c = slice(int(perm[g0 + s]) * GROUP, (int(perm[g0 + s]) + 1)
+                      * GROUP)
+            ref += f64(gh)[:, c] @ (Dh[s] + Dl[s]).T + f64(gl)[:, c] @ Dh[s].T
+    got = S.flush_window(gh, gl, dh, dl, perm, _t(np.array(has, np.int32)),
+                         q, g0, nslots)
+    assert got is q
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-5)
+    if not any(has[g0:g0 + nslots]):
+        assert torch.equal(got, ref.to(torch.float32))
