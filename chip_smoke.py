@@ -34,7 +34,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      cap of 40, half at 1 with 60, each screened at its own l1r, the cap
      reached in the sweep) on the whole-array sweep at B 512, npad 4096,
      and on the coordinate-major sweep at B 1024, npad 28672, 38 of 56
-     groups active.  The coordinate-major sweep's window flush alone at
+     groups active; the compact block's gathers (``gather``: G[S, S] and
+     the targets' G[S, j], B 1024) at phase 7's widest FSLIM union (npad
+     28672, K 8192) and at Amazon-Book's widest compact union (npad 94208,
+     K 61440), bit for bit against two ``index_select``s (``extra``:
+     gather@fslim_trans, gather@amzbook, gather@amzbook_trans).  The
+     coordinate-major sweep's window flush alone at
      the ML-20M shape (B 1024, npad 28672, 56/56) on a random normal G:
      one window on a q ~100 times its increment against its plain version
      (1e-5 of the increment plus 2 ulps of q), then the 14 windows of a
@@ -336,34 +341,34 @@ GUIDE_MSELECT = [(0.1, 0.5, 1100, 0.06377551020408162, 0.04640074211502782),
                  (1.0, 0.5, 1089, 0.06377551020408162, 0.04640074211502782),
                  (1.0, 2.0, 1096, 0.06377551020408162, 0.04640074211502782)]
 GUIDE_BEST = (0.1, 0.5, 0.1, 0.5)
-# the kernels each driven path must launch, and no other: the synth set
-# (npad 384) and
-# the ML-1M shape (npad 4096) solve on the whole-array row-major sweep, and
-# so do both ML-1M FSLIM learns (full width, and compact with every union
-# at most 2,048 wide); every ML-20M block on the wide-block sweep its
-# variant picks (v4 by default, v3 and eager under the env switches); the
-# ML-20M FSLIM learns on the whole-array sweep (compact blocks whose union
-# is 4,096 or less) and on v4 (wider unions, and every block of the
-# SLIM_COMPACT_FRAC=0 learn); the 262k-item serving phase scores sparse
-# and launches none; ADMM's products are plain matmuls (its Gram goes
-# through densify); the packed grids and the classes solve as the learns
-# of their shapes do.  The dense predicts above npad 8192 that name no
-# precision (phases 4, 5, 7 and 14 at ML-20M) score at "high", their
-# histories densified into bfloat16 (densify_bf16)
+# the kernels each driven path must launch, and no other: the synth set (npad
+# 384) and the ML-1M shape (npad 4096) solve on the whole-array row-major
+# sweep, and so do both ML-1M FSLIM learns (full width, and compact with every
+# union at most 2,048 wide, its pieces gathered by the gather kernel); every
+# ML-20M block on the wide-block sweep its variant picks (v4 by default, v3
+# and eager under the env switches; every union full width, so no gather); the
+# ML-20M FSLIM learns on the whole-array sweep (compact blocks whose union is
+# 4,096 or less, gathered) and on v4 (wider unions, gathered, and every block
+# of the SLIM_COMPACT_FRAC=0 learn); the 262k-item serving phase scores sparse
+# and launches none; ADMM's products are plain matmuls (its Gram goes through
+# densify); the packed grids and the classes solve as the learns of their
+# shapes do.  The dense predicts above npad 8192 that name no precision
+# (phases 4, 5, 7 and 14 at ML-20M) score at "high", their histories densified
+# into bfloat16 (densify_bf16)
 PATH_KERNELS = {"synth": ("densify", "cd_sweep", "pack"),
                 "ml1m": ("densify", "cd_sweep", "pack"),
                 # the three programs at the ML-1M shape: the learns' Grams
                 # and the dense predicts on densify, their blocks on the
                 # whole-array sweep (npad 4096), harvests on pack
                 "cli": ("densify", "cd_sweep", "pack"),
-                "ml1m_fslim": ("densify", "cd_sweep", "pack"),
+                "ml1m_fslim": ("densify", "cd_sweep", "pack", "gather"),
                 "ml20m": ("densify", "densify_bf16", "cd_sweep_large",
                           "pack"),
                 "mselect": ("densify", "densify_bf16", "cd_sweep_v3",
                             "pack"),
                 "eager": ("densify", "cd_sweep_eager", "pack"),
                 "fslim": ("densify", "densify_bf16", "cd_sweep",
-                          "cd_sweep_large", "pack"),
+                          "cd_sweep_large", "pack", "gather"),
                 "serve": (),
                 "admm": ("densify",),
                 "grid": ("densify", "cd_sweep", "pack"),
@@ -404,6 +409,8 @@ _DENSIFY_UNIT = ("kernel launches: one per densify / densify_runs call, "
                  "whatever the block's size or its longest run")
 LAUNCH_UNIT = {"densify": _DENSIFY_UNIT, "densify_bf16": _DENSIFY_UNIT,
                "pack": "kernel launches",
+               "gather": "kernel launches: one per gather call (a compact "
+                         "block's G[S, S] or its targets' G[S, j])",
                "cd_sweep": _SWEEP_UNIT, "cd_sweep_large": _LARGE_UNIT,
                "cd_sweep_v3": _PANEL_UNIT, "cd_sweep_eager": _PANEL_UNIT}
 
@@ -1034,6 +1041,63 @@ def check_pack(dev, rng):
     # x and the offsets read once, values and ids written once
     return with_bound(line, 4.0 * B * K + 4.0 * B + 8.0 * Tpad,
                       library_ms=cuda_ms(library, 20))
+
+
+def check_gather(dev, rng, B=1024, chunk=8192,
+                 shapes=((28672, 8192, ""), (94208, 61440, "@amzbook"))):
+    """The compact block's gathers (``gather``, csrc/gather.cu) against
+    ``gather_plain`` (two ``index_select``s), bit for bit, on a G that is
+    not symmetric: G[S, S] and the targets' G[S, j] (B columns) at phase
+    7's widest FSLIM union (npad 28672, K 8192) and at Amazon-Book's widest
+    compact union (npad 94208, K 61440): ``shapes``, (npad, K, name
+    suffix) each.  S is ascending, as the solver's
+    unions are; the targets are B consecutive ranks.  The plain version is
+    compared a ``chunk`` of rows at a time (at K 61440 its (K, npad)
+    intermediate and its output would not fit beside G and the kernel's
+    output) and timed whole with the kernel's output freed; where it does
+    not fit even so, its time is None and ``plain_oom`` says why.  The
+    bound: a read and a write of every output entry, 8 R C bytes."""
+    from slim_tpu_torch.ops.gather import gather, gather_plain
+
+    lines = []
+    for npad, K, tag in shapes:
+        torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(npad)
+        G = torch.rand((npad, npad), generator=g, device=dev)
+        S = torch.from_numpy(np.sort(rng.choice(npad - 1, K, replace=False))
+                             .astype(np.int32)).to(dev)
+        r0 = npad // 2
+        J = torch.arange(r0, r0 + B, dtype=torch.int32, device=dev)
+        for rows, trans, name, line in (
+                (S, False, tag, 304),
+                (J, True, (tag or "@fslim") + "_trans", 307)):
+            R, C = rows.numel(), S.numel()
+            got = gather(G, rows, S, trans)
+            same = all(torch.equal(got[a:a + chunk],
+                                   gather_plain(G, rows[a:a + chunk], S,
+                                                trans))
+                       for a in range(0, R, chunk))
+            check(same, f"gather differs from plain at npad {npad}, R {R}, "
+                        f"C {C}, trans {trans}")
+            del got
+            rec = dict(name="gather" + name, route="cuda",
+                       source="slim_tpu_torch/csrc/gather.cu",
+                       replaces=f"slim_tpu/ops/cd_kernel.py:{line}",
+                       max_abs_err=0.0,
+                       ms=cuda_ms(lambda: gather(G, rows, S, trans), 10),
+                       shape=f"npad={npad} R={R} C={C} trans={int(trans)}",
+                       tol="bit-equal")
+            torch.cuda.empty_cache()
+            try:
+                rec["plain_ms"] = cuda_ms(
+                    lambda: gather_plain(G, rows, S, trans), 3)
+            except torch.cuda.OutOfMemoryError as e:
+                rec["plain_ms"] = None
+                rec["plain_oom"] = str(e).splitlines()[0]
+            lines.append(with_bound(rec, 8.0 * R * C))
+        del G
+    torch.cuda.empty_cache()
+    return lines
 
 
 def run_synth(dev):
@@ -2978,6 +3042,7 @@ def kernel_checks(dev, trn, profile=None):
     checks.append(check_sweep_large(_sweep_inputs(
         dev, rng, 8000, 32000, 320_000, 1024, large=True,
         nnbrs=FSLIM_CFG["nnbrs"]), all_active=False))
+    checks += check_gather(dev, rng)
     for c in checks:
         print("check:", json.dumps(c), flush=True)
     return checks

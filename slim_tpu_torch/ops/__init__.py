@@ -7,9 +7,11 @@ def kernel_wrappers() -> dict:
     call)."""
     from .cd_sweep import cd_sweep, cd_sweep_eager, cd_sweep_large, cd_sweep_v3
     from .densify import densify, densify_bf16
+    from .gather import gather
     from .pack import pack
 
     return {"densify": densify, "densify_bf16": densify_bf16,
             "cd_sweep": cd_sweep,
             "cd_sweep_large": cd_sweep_large, "cd_sweep_v3": cd_sweep_v3,
-            "cd_sweep_eager": cd_sweep_eager, "pack": pack}
+            "cd_sweep_eager": cd_sweep_eager, "pack": pack,
+            "gather": gather}

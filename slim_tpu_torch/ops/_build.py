@@ -42,6 +42,7 @@ _SIGNATURES = {
     "slim_flush": [_P] * 7 + [_I] * 6 + [_P],
     "slim_flush_clusters": [],
     "slim_cd_sweep_panel": [_I] + [_P] * 12 + [_I] * 3 + [_P] * 7,
+    "slim_gather": [_P, _LL, _P, _I, _P, _I, _I, _P, _P],
 }
 
 _lib = None

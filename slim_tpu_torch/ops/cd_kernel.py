@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 
 from ..utils import span, topk_lowest_id
+from .gather import gather
+from .gram import panel_rows
 from .pack import pack_plain as pack_flat  # noqa: F401  (the pack contract)
 
 CHUNK = 128  # coordinates per Gauss-Seidel chunk
@@ -82,22 +84,26 @@ def count_over(x, eps):
 
 def block_union_flags(G, nblocks, B, l1r):
     """u (nblocks, npad) bool: coordinate i is active for some column of
-    block b (columns [b*B, (b+1)*B), self excluded), in one slice-reduce
-    pass over G."""
+    block b (columns [b*B, (b+1)*B), self excluded), G's rows taken a
+    horizontal panel (``ops.gram.panel_rows``) at a time: a panel's
+    (rows, nblocks x B) mask G > l1r, its diagonal cleared, reduced by
+    ``any`` over each block's columns.  No mask as large as G is made (at
+    npad 94,208 the whole one is 8.7 GB, and a sum over it in int64
+    64.7 GiB)."""
     npad = G.shape[0]
     total = nblocks * B
-    Gb = G[:, :min(total, npad)]
-    if total > npad:
-        Gb = torch.nn.functional.pad(Gb, (0, total - npad))
-    over = (Gb > l1r).reshape(npad, nblocks, B)
-    cnt = over.sum(dim=2)                                   # (npad, nblocks)
-    rows = torch.arange(npad, device=G.device)
-    self_block = rows // B
-    self_over = torch.diagonal(G) > l1r
-    self_term = ((torch.arange(nblocks, device=G.device)[None, :]
-                  == self_block[:, None])
-                 & self_over[:, None] & (rows < min(total, npad))[:, None])
-    return ((cnt - self_term.to(cnt.dtype)) > 0).T
+    width = min(total, npad)
+    step = panel_rows(npad)
+    u = torch.empty((npad, nblocks), dtype=torch.bool, device=G.device)
+    for r0 in range(0, npad, step):
+        r1 = min(r0 + step, npad)
+        over = torch.zeros((r1 - r0, total), dtype=torch.bool,
+                           device=G.device)
+        torch.gt(G[r0:r1, :width], l1r, out=over[:, :width])
+        d = torch.arange(r0, max(r0, min(r1, width)), device=G.device)
+        over[d - r0, d] = False                       # self excluded
+        torch.any(over.view(r1 - r0, nblocks, B), dim=2, out=u[r0:r1])
+    return u.T
 
 
 def compact_union_ids(u):
@@ -184,20 +190,17 @@ def cd_solve_block_ids(G, j_ids, caps, x0, l1r, l2r, optTol, gen,
                   optTol, gen, shuffle, x0_zero, variant)
 
 
-def cd_solve_block_compact(G, S, j_ids, caps, x0s, l1r, l2r, optTol, gen,
-                           shuffle=True, impl="plain", x0_zero=False,
-                           variant="v4", fslim_nnbrs=0, simtype="cos"):
-    """Solve a block in the compact coordinate space S (exact: coordinates
-    outside S are inactive for every column of the block; for FSLIM, S is
-    the union of the columns' neighbour sets)."""
-    Sl = S.long()
-    Gs = G.index_select(0, Sl).index_select(1, Sl)          # (K, K)
-    gjs = G[:, j_ids.long()].T[:, Sl].contiguous()          # (B, K)
-    yty = torch.diagonal(G)[j_ids.long()]
-    return cd_solve_compact(Gs, S, G.shape[0], j_ids, gjs, yty, caps, x0s,
-                            l1r, l2r, optTol, gen, shuffle=shuffle,
-                            impl=impl, x0_zero=x0_zero, variant=variant,
-                            fslim_nnbrs=fslim_nnbrs, simtype=simtype)
+def gather_compact(G, S, j_ids):
+    """A compact block's pieces from the full G, each in one pass
+    (ops/gather.py, no (K, npad) intermediate), as :func:`cd_solve_compact`
+    takes them: Gs = G[S, S] (K, K), the targets' rows gjs (B, K), read as
+    G[S, j] (the solver's column j), and yty = G[j, j] (B,).  The block is
+    exact in the compact space S: coordinates outside S are inactive for
+    every column of the block (for FSLIM, S is the union of the columns'
+    neighbour sets)."""
+    S32, J32 = S.to(torch.int32), j_ids.to(torch.int32)
+    return (gather(G, S32, S32), gather(G, J32, S32, trans=True),
+            torch.diagonal(G)[j_ids.long()])
 
 
 def cd_solve_compact(Gs, S, npad, j_ids, gjs, yty, caps, x0s, l1r, l2r,

@@ -70,11 +70,23 @@ def q_refresh() -> int:
     return n if n > 0 else 1 << 30
 
 
+SPLIT_ROWS = 2048   # rows of G a split step takes (its float32 temporaries)
+
+
 def split_bf16(G):
     """G = hi + lo to about 2^-17 relative: hi = bf16(G), lo = bf16(G - hi),
-    the operands of the large sweep's bf16x3 tensor-core products."""
-    hi = G.to(torch.bfloat16)
-    return hi, (G - hi.to(torch.float32)).to(torch.bfloat16)
+    the operands of the large sweep's bf16x3 tensor-core products.  Made
+    SPLIT_ROWS rows at a time, so the float32 temporaries of G - hi stay
+    small beside G and its halves (at npad 94,208 each whole one would be
+    as large as G, 33 GiB)."""
+    hi = torch.empty(G.shape, dtype=torch.bfloat16, device=G.device)
+    lo = torch.empty_like(hi)
+    for r0 in range(0, G.shape[0], SPLIT_ROWS):
+        g = G[r0:r0 + SPLIT_ROWS]
+        h = hi[r0:r0 + SPLIT_ROWS]
+        h.copy_(g)
+        lo[r0:r0 + SPLIT_ROWS] = g - h.to(torch.float32)
+    return hi, lo
 
 
 _SPLIT = {}   # the one kept split of G (utils.kept)
@@ -85,6 +97,15 @@ def _split_of(G):
     unchanged (same object, same version counter): G is loop-invariant
     across the sweeps of a solve and the blocks of a learn."""
     return kept(_SPLIT, "G", G, lambda: split_bf16(G))[0]
+
+
+def drop_split(G) -> None:
+    """Free the kept split of ``G`` now, where the caller knows that no
+    later sweep reads it (a learn past its last full-width block): only
+    the moment of release changes, the slot stays :func:`_split_of`'s."""
+    hit = _SPLIT.get("G")
+    if hit is not None and hit[0]() is G:
+        _SPLIT.clear()
 
 
 def _gs_chain(gjl, xl, ql, okf, d, gcc, l1, l2):

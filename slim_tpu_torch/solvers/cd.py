@@ -29,6 +29,21 @@ by a signature of everything that shapes it (:class:`_Checkpoint`), and a
 later learn loads the blocks it finds instead of solving them.
 :func:`estimate_grid_cd` solves a whole (l1r, l2r) grid in one packed
 pass, each block's columns carrying their own regularisation.
+
+Where G lives, and the learn's memory plan on the card.  G is built in
+rank space, one (npad, npad) float32 buffer (:func:`_rank_space`,
+``ops/gram.py``), and lives until the learn returns.  Beside it, phase by
+phase (in brackets the peak at Amazon-Book's npad 94,208 on an H100,
+where G is 33.1 GiB): the Gram holds the int32 accumulator that becomes
+G in place, one panel's product (an eighth of it) and one densified row
+block (38.0 GiB); the screen (``relabel+screen``) one panel's mask G >
+l1r (35.1 GiB); a full-width block the kept bf16 halves of G (as large as
+G), made at the first such block and freed after the last one
+(:func:`drop_split` of ``ops/cd_sweep``), and the block's (B, npad)
+operands (70.7 GiB); a compact block of width K its gathers (phase
+``compact-gather``: G[S, S] and G[j, S], 47.5 GiB at K 61,440), then G[S, S]'s
+halves where K is above the compact threshold and (B, K) operands (64.2
+GiB); the held entries, 12 bytes each, until the assembly sorts them.
 """
 
 from __future__ import annotations
@@ -49,9 +64,9 @@ import torch
 from ..config import (SlimConfig, SLIM_DBG_INFO, SLIM_DBG_PROGRESS,
                       SLIM_DBG_TIME, dbg)
 from ..ops.cd_kernel import (block_union_flags, block_union_mask,
-                             cd_solve_block_compact, cd_solve_block_ids,
-                             compact_union_ids, count_over)
-from ..ops.cd_sweep import GROUP, pick_large_variant
+                             cd_solve_block_ids, cd_solve_compact,
+                             compact_union_ids, count_over, gather_compact)
+from ..ops.cd_sweep import GROUP, drop_split, pick_large_variant
 from ..ops.densify import densify_runs
 from ..ops.gram import compute_gram, pin_f32
 from ..ops.pack import pack
@@ -240,21 +255,32 @@ class _Checkpoint:
 
 def _rank_space(train: CSR, cfg: SlimConfig, npad: int, gram, dev):
     """The frequency relabel (rank r = the r-th most-rated item): the Gram
-    in rank space on ``dev`` (``gram``, in item space, or computed), p
-    (rank -> item), ``p_pad`` / ``posmap_pad`` over npad, and each rank's
-    sweep cap min(50 nnz_col, maxniters) (estimate.c:448-449)."""
+    in rank space on ``dev``, p (rank -> item), ``p_pad`` / ``posmap_pad``
+    over npad, and each rank's sweep cap min(50 nnz_col, maxniters)
+    (estimate.c:448-449).  A computed Gram is built in rank space, one
+    (npad, npad) buffer (``compute_gram`` through ``col_map`` = item ->
+    rank; the JAX package permutes an item-space G instead); a given
+    ``gram``, in item space (model selection's shared one), is permuted
+    with two gathers."""
     n = train.ncols
-    g_raw = gram if gram is not None else \
-        compute_gram(train, cfg.gram, pad_to=npad, device=dev)
-    nnz_col = train.col_nnz()
+    # the column counts on ``dev``, from the ids the Gram uploads: the
+    # host's bincount (~0.1 s at 20M ratings) would hold back the Gram,
+    # which needs the ranks before it starts
+    idx = train.dev_put("idx32", lambda: train.indices.astype(np.int32), dev)
+    with span("slim.wait.counts"):
+        nnz_col = torch.bincount(idx, minlength=n).cpu().numpy()
     col_caps = np.minimum(50 * nnz_col, cfg.maxniters).astype(np.int32)
     p = np.argsort(-nnz_col, kind="stable").astype(np.int32)  # rank -> item
     pad = np.arange(n, npad, dtype=np.int64)
     p_pad = np.concatenate([p, pad])
     posmap_pad = np.concatenate([np.empty(n, np.int64), pad])
     posmap_pad[p] = np.arange(n)                              # item -> rank
-    p_dev = torch.from_numpy(p_pad).to(dev)
-    g = g_raw.index_select(0, p_dev).index_select(1, p_dev)
+    if gram is None:
+        g = compute_gram(train, cfg.gram, pad_to=npad, device=dev,
+                         col_map=posmap_pad[:n])
+    else:
+        p_dev = torch.from_numpy(p_pad).to(dev)
+        g = gram.index_select(0, p_dev).index_select(1, p_dev)
     return g, p, p_pad, posmap_pad, col_caps[p], nnz_col
 
 
@@ -387,8 +413,11 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
 
     Returns ``(model, stats)``: model is a CSR with rows = rated item,
     cols = target item (estimate.c:570-593); stats carries loss/fit/nnz,
-    the summed per-column sweeps, ``phases`` (seconds per phase) and, on
-    the compact path, ``union_widths`` and ``unions``.
+    the summed per-column sweeps, ``phases`` (seconds per phase),
+    ``block_width`` (the columns of a block), ``sweep_work`` (the sums
+    over blocks of K^2 x sweeps and npad^2 x sweeps, K a block's
+    coordinate width: the sweep work the screen's unions leave of full
+    width's) and, on the compact path, ``union_widths`` and ``unions``.
 
     FSLIM (mtype fslim, and ofslim, which learns as fslim) restricts each
     column's active set to its ``cfg.nnbrs`` most similar items
@@ -512,6 +541,10 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                 x0 = warm_x0(runs, r0, nJ, B, n, npad)
                 if S is not None:
                     x0 = x0.index_select(1, S.long())
+        pieces = None
+        if S is not None:
+            with clock.phase("compact-gather"):
+                pieces = gather_compact(g, S, J)
         with clock.phase("solve"):
             caps = np.zeros(B, dtype=np.int32)
             caps[:nJ] = caps_p[r0:r0 + nJ]
@@ -524,8 +557,9 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
                       impl=pick_impl(K, dev, cfg.compact_threshold),
                       variant=pick_large_variant(B, K))
             if S is not None:
-                out = cd_solve_block_compact(g, S, J, caps_d, x0, *args,
-                                             **kw, **fslim)
+                Gs, gjs, yty = pieces
+                out = cd_solve_compact(Gs, S, npad, J, gjs, yty, caps_d, x0,
+                                       *args, **kw, **fslim)
             else:
                 out = cd_solve_block_ids(g, J, caps_d, x0, *args, **kw,
                                          n_valid=n, **fslim)
@@ -554,6 +588,11 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
 
     p32 = torch.from_numpy(p_pad.astype(np.int32)).to(dev)
     held = _Held(dev)
+    # sweep work: sum over blocks of K^2 x sweeps, and of npad^2 x sweeps
+    work = [0, 0]
+    # the kept bf16 halves of the full G serve full-width blocks only: free
+    # them once the last of those is solved, before the compact gathers
+    last_full = max((b for b in mine if b not in union), default=None)
     for blk in mine:
         rec = None
         if ckpt is not None and os.path.exists(ckpt.path(blk)):
@@ -566,6 +605,11 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
             if ckpt is not None:
                 with clock.phase("checkpoint"):
                     ckpt.save(blk, rec)
+        if blk == last_full:
+            drop_split(g)
+        K = union[blk][0] if blk in union else npad
+        work[0] += K * K * rec.sweeps
+        work[1] += npad * npad * rec.sweeps
 
     if shard is not None:
         with clock.phase("gather"):
@@ -583,6 +627,8 @@ def estimate_model_cd(train: CSR, cfg: SlimConfig, imodel: CSR | None = None,
         "sweeps": sweeps,
         "phases": _phases(clock),
         "assembly": held.where,
+        "sweep_work": tuple(work),
+        "block_width": B,
     }
     if use_compact:
         # coordinate width -> blocks, and each compact block's union (rank

@@ -998,3 +998,87 @@ def test_harvest_on_card_equals_reference_assembly(dev, monkeypatch, shape):
             moved = run()
         assert moved[1]["assembly"] == "host"
         _same_model(moved, ref)
+
+
+@pytest.mark.parametrize("n,ld,R,C,trans", [(4096, 4096, 3000, 3000, False),
+                                           (4096, 4100, 1000, 2999, True),
+                                           (640, 640, 37, 600, True),
+                                           (640, 768, 600, 37, False)])
+def test_gather_kernel_matches_plain(dev, n, ld, R, C, trans):
+    """csrc/gather.cu against two index_selects, bit for bit, on a G that
+    is not symmetric (a row stride ``ld`` above its width), ragged R and
+    C, ids repeated and out of order."""
+    from slim_tpu_torch.ops import gather as GA
+
+    g = torch.Generator(device=dev).manual_seed(n + R)
+    big = torch.rand((n, ld), generator=g, device=dev)
+    Gm = big[:, :n]
+    rows = torch.randint(0, n, (R,), generator=g, device=dev,
+                         dtype=torch.int32)
+    cols = torch.sort(torch.randint(0, n, (C,), generator=g, device=dev,
+                                    dtype=torch.int32)).values
+    before = GA.gather.launches
+    got = GA.gather(Gm, rows, cols, trans)
+    assert GA.gather.launches == before + 1
+    assert torch.equal(got, GA.gather_plain(Gm, rows, cols, trans))
+
+
+def test_compact_gather_makes_no_wide_intermediate(dev):
+    """G[S, S] and G[j, S] at npad 16,384 and K 8,192 allocate their
+    outputs and nothing as wide as a (K, npad) block."""
+    from slim_tpu_torch.ops.cd_kernel import gather_compact
+
+    npad, K, B = 16384, 8192, 1024
+    G = torch.rand((npad, npad), device=dev)
+    S = torch.sort(torch.randperm(npad - 1, device=dev)[:K]).values \
+        .to(torch.int32)
+    J = torch.arange(B, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    Gs, gjs, yty = gather_compact(G, S, J)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    assert extra <= 4 * (K * K + B * K + B) + (1 << 20), extra
+    Sl, Jl = S.long(), J.long()
+    assert torch.equal(Gs, G.index_select(0, Sl).index_select(1, Sl))
+    assert torch.equal(gjs, G[:, Jl].T[:, Sl])
+    assert torch.equal(yty, torch.diagonal(G)[Jl])
+
+
+def test_rank_space_gram_on_card(dev, rng):
+    """The card's Gram through ``col_map`` is the permuted item-space
+    Gram: bit for bit on binary data, to float32 rounding on valued."""
+    for implicit in (True, False):
+        mat = random_csr(rng, 900, 700, density=0.05, implicit=implicit)
+        m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices,
+                            mat.data)
+        npad = 768
+        p = np.argsort(-m.col_nnz(), kind="stable")
+        rank = np.empty(m.ncols, np.int64)
+        rank[p] = np.arange(m.ncols)
+        pp = torch.from_numpy(np.concatenate(
+            [p, np.arange(m.ncols, npad)])).to(dev)
+        item = G.compute_gram(m, "device", pad_to=npad, device=dev)
+        want = item.index_select(0, pp).index_select(1, pp)
+        got = G.compute_gram(m, "device", pad_to=npad, device=dev,
+                             col_map=rank)
+        if implicit:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+def test_rank_space_counts_columns_on_card(dev, rng):
+    """On the card ``_rank_space`` counts each column's ratings there, as
+    ``CSR.col_nnz`` does, and its rank-space Gram equals the host's."""
+    from slim_tpu_torch import SlimConfig
+    from slim_tpu_torch.solvers import cd as C
+
+    mat = random_csr(rng, 500, 300, density=0.05, implicit=True)
+    m = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr, mat.indices)
+    g, p, *_, nnz = C._rank_space(m, SlimConfig(), 384, None, dev)
+    np.testing.assert_array_equal(nnz, m.col_nnz())
+    host = C._rank_space(m, SlimConfig(), 384, None, torch.device("cpu"))
+    np.testing.assert_array_equal(p, host[1])
+    assert torch.equal(g.cpu(), host[0])

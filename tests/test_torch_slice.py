@@ -120,8 +120,8 @@ def test_compact_frac_knob_is_read_at_call_time(monkeypatch, frac, compact):
     base = dict(l1r=0.0, l2r=1.0, block_size=64, shuffle=False)
     m_full, s_full = learn(mat, SlimConfig(**base), device="cpu")
     calls = []
-    real = C.cd_solve_block_compact
-    monkeypatch.setattr(C, "cd_solve_block_compact",
+    real = C.gather_compact
+    monkeypatch.setattr(C, "gather_compact",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     monkeypatch.setenv("SLIM_COMPACT_FRAC", frac)
     m_cmp, s_cmp = learn(mat, SlimConfig(compact_threshold=256, **base),
